@@ -1,0 +1,604 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``fer_vit_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases, in order; any failure exits non-zero before the result line:
+
+1. device: the card's name and power limit (``nvidia-smi``), then the build
+   of every kernel from ``fer_vit_tpu_torch/csrc`` with nvcc for sm_90a, with
+   its build time and the registers, shared memory and spills ptxas reports.
+2. kernels: each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it, in f32 and bf16, plus edge cases and a
+   gradient check; then per shape the kernel's time, the plain version's,
+   a cuDNN yardstick's and the bound, all with CUDA events.
+3. slice: the main path at full width. ``EncoderWrapper`` (pSp over IR-SE50,
+   256 px, BN folded, fused residual units, bf16) feeds ``LatentViT`` (depth
+   6, 512 wide) behind ``Predictor``; weights are random, from a seed, in the
+   JAX package's layout and go through the port's bridge. It serves three
+   requests, checks the kernels' launch counts, and compares the card with
+   the same modules run on the CPU in f32.
+
+The line before the last is a JSON object listing every kernel; the last line
+is ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
+repository around it; without either it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor rate and HBM rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+# The 8 distinct fused-unit shapes of IR-SE50 at 256 px:
+# (H=W in, Cin, Cout, stride, units with this shape).
+IRSE50_UNIT_SHAPES = (
+    (256, 64, 64, 2, 1),
+    (128, 64, 64, 1, 2),
+    (128, 64, 128, 2, 1),
+    (64, 128, 128, 1, 3),
+    (64, 128, 256, 2, 1),
+    (32, 256, 256, 1, 13),
+    (32, 256, 512, 2, 1),
+    (16, 512, 512, 1, 2),
+)
+# The slice serves batches of 16, so the kernel is checked and timed at the
+# shapes the main path gives it: (16, H, W, Cin).
+SLICE_BATCH = 16
+# Edge cases: (H, W, Cin, Cout, stride), each with the tile pick_tile gives
+# it. An image narrower than the 16x16 tile of a wide image (bf16 and f32:
+# one 8x8 tile); an output height not a multiple of the tile height (12x8:
+# 8x8 tiles); ragged in both directions at stride 1 (24x12: 16x8 tiles in
+# bf16, 8x8 in f32) and at stride 2 (output 10x6: 8x4 in bf16, 4x4 in f32).
+EDGE_CASES = (
+    (8, 8, 64, 64, 1),
+    (12, 8, 64, 64, 1),
+    (24, 12, 64, 64, 1),
+    (20, 12, 64, 128, 2),
+)
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeError(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- phase 1: device and build ----------------------------------------------
+
+
+def phase_device(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip() != "",
+          f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
+        f"count {torch.cuda.device_count()}")
+
+    from fer_vit_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    paths = _build.build_all()
+    log(f"build: {len(paths)} kernel sources for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, info in sorted(_build.build_logs.items()):
+        log(f"build {name}: {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if any(w in line for w in ("Compiling entry", "Used", "spill")):
+                log(f"  {line.strip()}")
+    return {"card": card, "kind": kind}
+
+
+# -- phase 2: kernels -----------------------------------------------------------
+
+
+def unit_inputs(torch, H, W, cin, cout, batch, seed, device, dtype):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    arrs = (
+        rng.normal(size=(batch, H, W, cin)).astype(f),
+        (rng.normal(size=cin) * 0.2 + 1.0).astype(f),
+        (rng.normal(size=cin) * 0.1).astype(f),
+        (rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)).astype(f),
+        rng.uniform(0.1, 0.4, size=cout).astype(f),
+        (rng.normal(size=(3, 3, cout, cout)) / np.sqrt(9 * cout)).astype(f),
+        (rng.normal(size=cout) * 0.1).astype(f),
+    )
+    out = [torch.from_numpy(a).to(device) for a in arrs]
+    out[0] = out[0].to(dtype)
+    return out
+
+
+def bf16_ulp(torch, v):
+    """One bf16 ulp at |v| (8 significant bits)."""
+    _, e = torch.frexp(v.abs().float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def compare_unit(torch, got, ref, dtype) -> dict:
+    """Kernel vs plain on one unit, with the tolerance of its dtype.
+
+    f32: |d| <= 1e-4 + 1e-4|ref| for res2 and 1e-3 + 1e-3|ref| for sums:
+    both sides accumulate thousands of f32 products in different orders
+    (the TPU kernel's own test uses the same bounds); the kernel's 3xTF32
+    products keep about 2^-22 of each.
+    bf16: |d| <= 1 ulp(ref) + 2^-9 max|ref| for res2: the f32 sums agree to
+    ~1e-6 but may round to neighbouring bf16 values, at the output and at
+    the bf16 intermediate, whose 1-ulp flips reach the output as a small
+    absolute error. sums: |d| <= 1e-4 of the channel's L1 mass + 1e-3: the
+    f32 summation-order error, the tensor cores' rounding toward zero
+    (which grows with K) and the intermediate's rare flips; one lost tile's
+    partial sum is larger.
+    """
+    r2, s2 = (t.float() for t in got)
+    rr, sr = (t.float() for t in ref)
+    d = (r2 - rr).abs()
+    ds = (s2 - sr).abs()
+    l1 = rr.abs().sum(dim=(1, 2))
+    if dtype == torch.float32:
+        ok_r = bool((d <= 1e-4 + 1e-4 * rr.abs()).all())
+        ok_s = bool((ds <= 1e-3 + 1e-3 * sr.abs()).all())
+    else:
+        ok_r = bool((d <= bf16_ulp(torch, rr) + 2.0 ** -9
+                     * rr.abs().max()).all())
+        ok_s = bool((ds <= 1e-4 * l1 + 1e-3).all())
+    return {"ok": ok_r and ok_s, "res2_err": float(d.max()),
+            "sums_err": float(ds.max()),
+            "sums_err_l1": float((ds / l1).max()),
+            "res2_scale": float(rr.abs().max())}
+
+
+def kernel_layout(w, dtype):
+    """HWIO weights as the kernel reads them without a copy: the HWIO view
+    of an OHWI tensor in ``dtype`` (what ``BottleneckIRSE`` passes)."""
+    return w.to(dtype).permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+
+
+def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def unit_bound_ms(B, H, W, cin, cout, stride, itemsize=2):
+    """Least time on the card, as (operations ms, bytes ms); the bound is
+    the larger. Operations: the MACs at the bf16 tensor peak. Bytes: x read
+    once, res2 and sums written once, both weights and the four per-channel
+    vectors read once, at the HBM rate."""
+    H2, W2 = H // stride, W // stride
+    macs = B * 9 * cout * (H * W * cin + H2 * W2 * cout)
+    nbytes = (B * H * W * cin * itemsize + B * H2 * W2 * cout * itemsize
+              + 9 * (cin + cout) * cout * itemsize + B * cout * 4
+              + 4 * (2 * cin + 2 * cout))
+    return 1e3 * 2 * macs / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES
+
+
+def yardstick(F, x, a1, b1, w1, alpha, w2, b2, stride):
+    """The same function from cuDNN convolutions in bf16 (timed only)."""
+    def run():
+        h = (x * a1.to(x.dtype) + b1.to(x.dtype)).permute(0, 3, 1, 2)
+        y = F.conv2d(h, w1, padding=1)
+        y = F.prelu(y, alpha)
+        y = F.conv2d(y, w2, bias=b2, stride=stride, padding=1)
+        return y, y.float().sum(dim=(2, 3))
+    return run
+
+
+def phase_kernels(torch) -> dict:
+    import torch.nn.functional as F
+
+    from fer_vit_tpu_torch.ops.fused_irse_unit import (
+        fused_irse_residual, fused_irse_residual_plain, pick_tile)
+
+    dev = torch.device("cuda")
+    failures = []
+    max_err_bf16 = 0.0
+    cases = [(H, H, cin, cout, s) for H, cin, cout, s, _ in
+             IRSE50_UNIT_SHAPES]
+    n_main = len(cases)
+    cases += list(EDGE_CASES)
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (H, W, cin, cout, s) in enumerate(cases):
+            args = unit_inputs(torch, H, W, cin, cout, SLICE_BATCH, 100 + i,
+                               dev, dtype)
+            got = fused_irse_residual(*args, stride=s)
+            torch.cuda.synchronize()
+            ref = fused_irse_residual_plain(*args, stride=s)
+            torch.cuda.synchronize()
+            c = compare_unit(torch, got, ref, dtype)
+            used = pick_tile(H // s, W // s, cin, cout, s, dtype)
+            log(f"check fused_irse_unit {str(dtype)[6:]} {H}x{W} "
+                f"{cin}->{cout} s{s} tile {used}: res2 err {c['res2_err']:.3e} "
+                f"(max|res2| {c['res2_scale']:.3f}) sums err "
+                f"{c['sums_err']:.3e} ({c['sums_err_l1']:.3e} of L1) "
+                f"{'ok' if c['ok'] else 'FAIL'}")
+            if not c["ok"]:
+                failures.append(f"{dtype} {H}x{W} {cin}->{cout} s{s}")
+            if dtype == torch.bfloat16 and i < n_main:
+                max_err_bf16 = max(max_err_bf16, c["res2_err"])
+
+    # gradient through the autograd Function vs autograd through the plain
+    # version (the backward recomputes through it, so they agree closely)
+    args = unit_inputs(torch, 8, 8, 8, 8, 2, 7, dev, torch.float32)
+    grads = []
+    for fn in (lambda *p: fused_irse_residual(*p, stride=2),
+               lambda *p: fused_irse_residual_plain(*p, stride=2)):
+        ps = [a.clone().requires_grad_(True) for a in args]
+        r, sm = fn(*ps)
+        ((r.float() ** 2).sum() + sm.sum()).backward()
+        grads.append([p.grad for p in ps])
+    gerr = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    log(f"check fused_irse_unit grad f32 8x8 8->8 s2: max err {gerr:.3e}")
+    if gerr > 1e-3:
+        failures.append(f"gradient error {gerr}")
+    check(not failures, f"fused_irse_unit disagrees with its plain version: "
+          f"{failures}")
+
+    # times at the main path's shapes, bf16
+    totals = {"ms": 0.0, "plain_ms": 0.0, "yardstick_ms": 0.0,
+              "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+    rows = []
+    for i, (H, cin, cout, s, n_units) in enumerate(IRSE50_UNIT_SHAPES):
+        args = unit_inputs(torch, H, H, cin, cout, SLICE_BATCH, 200 + i, dev,
+                           torch.bfloat16)
+        x, a1, b1, w1, alpha, w2, b2 = args
+        k_args = (x, a1, b1, kernel_layout(w1, torch.bfloat16), alpha,
+                  kernel_layout(w2, torch.bfloat16), b2)
+        t_k = time_ms(torch, lambda: fused_irse_residual(*k_args, stride=s))
+        t_p = time_ms(torch,
+                      lambda: fused_irse_residual_plain(*args, stride=s))
+        xc = x.contiguous(memory_format=torch.contiguous_format)
+        k1 = w1.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        k2 = w2.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t_y = time_ms(torch, yardstick(F, xc, a1, b1, k1,
+                                       alpha.to(torch.bfloat16), k2,
+                                       b2.to(torch.bfloat16), s))
+        ops_ms, bytes_ms = unit_bound_ms(SLICE_BATCH, H, H, cin, cout, s)
+        bound = max(ops_ms, bytes_ms)
+        row = {"shape": f"{H}x{H} {cin}->{cout} s{s}", "units": n_units,
+               "tile": list(pick_tile(H // s, H // s, cin, cout, s)),
+               "ms": t_k, "plain_ms": t_p, "yardstick_ms": t_y,
+               "bound_ms": bound, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        rows.append(row)
+        for k in totals:
+            totals[k] += n_units * row[k]
+        log(f"time fused_irse_unit bf16 batch {SLICE_BATCH} {row['shape']} "
+            f"tile {tuple(row['tile'])}: kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, cudnn yardstick {t_y:.4f} ms, bound "
+            f"{bound:.4f} ms (operations {ops_ms:.4f}, bytes "
+            f"{bytes_ms:.4f}; {t_k / bound:.1f}x bound)")
+    log("time fused_irse_unit per forward (24 units, batch "
+        f"{SLICE_BATCH}): " + ", ".join(f"{k} {v:.4f}"
+                                           for k, v in totals.items()))
+    bound_by = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
+                else "bytes")
+    return {"fused_irse_unit": dict(totals, max_abs_err=max_err_bf16,
+                                    bound_by=bound_by, rows=rows)}
+
+
+# -- main ---------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not (ROOT / "fer_vit_tpu_torch" / "__init__.py").exists():
+        print(f"chip_smoke: no fer_vit_tpu_torch package beside {__file__}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    # f32 references on the card are true f32: no TF32 in cuDNN or cuBLAS
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    dev_info = phase_device(torch)
+    kernels = phase_kernels(torch)
+    launches = phase_slice(torch, dev_info)
+    print(json.dumps({"kernels": [kernel_entry(name, k, launches)
+                                  for name, k in kernels.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev_info["kind"],
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+KERNEL_META = {
+    "fused_irse_unit": {
+        "route": "cuda",
+        "source": "fer_vit_tpu_torch/csrc/fused_irse_unit.cu",
+        "replaces": "fer_vit_tpu/ops/fused_irse_unit.py:86",
+    },
+}
+
+
+def kernel_entry(name: str, k: dict, launches: dict) -> dict:
+    return {"name": name, **KERNEL_META[name],
+            "launches": launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "yardstick_ms": k["yardstick_ms"]}
+
+
+# -- phase 3: the slice -------------------------------------------------------
+
+IR_SE_50_PLAN = ((64, 64, 3), (64, 128, 4), (128, 256, 14), (256, 512, 3))
+SLICE_DEPTH = 2
+REQUEST_SIZES = (1, 7, 20)
+# bf16 on the card vs f32 on the CPU, on 2 images: bf16 keeps 8 significant
+# bits through 24 residual units, the FPN, 18 heads and 6 transformer
+# layers. Limits, from readings on an H100: the class probabilities within
+# 1e-2 (read 2.3e-3), w+ within a relative L2 error of 2e-2 (read 1.13e-2;
+# zero padding left off conv1's border reads 9.3e-2), and the labels agree
+# wherever the f32 top two probabilities are more than 0.1 apart. Faults
+# below bf16's noise, such as one tile's SE partial sum lost (w+ 1.6e-2),
+# are for the kernel phase and the f32 run below (w+ 4.4e-3) to catch.
+BF16_PROB_TOL = 1e-2
+BF16_W_RTOL = 2e-2
+BF16_MARGIN = 0.1
+# f32 on the card (the kernel's f32 instantiation, TF32 off) vs f32 on the
+# CPU: the same arithmetic in other summation orders (read on an H100:
+# probabilities 1.2e-7, w+ 2.7e-6).
+F32_PROB_TOL = 1e-4
+F32_W_RTOL = 1e-4
+
+
+def psp_jax_variables(plan=IR_SE_50_PLAN, input_size=256, style_dim=512,
+                      n_styles=18, coarse_ind=3, middle_ind=7, seed=0):
+    """Seeded pSp weights as a numpy tree in the JAX package's ``PSpEncoder``
+    layout (unfused): conv kernels N(0, 1/fan_in), BN near identity."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def kernel(*shape):
+        fan_in = np.prod(shape[-4:-1]) if len(shape) >= 4 else shape[-2]
+        return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(f32)
+
+    def small(*shape):
+        return (0.1 * rng.normal(size=shape)).astype(f32)
+
+    def bn(c):
+        return ({"scale": (1 + small(c)).astype(f32), "bias": small(c)},
+                {"mean": small(c), "var": rng.uniform(0.8, 1.2, c).astype(f32)})
+
+    def slopes(c):
+        return {"alpha": rng.uniform(0.1, 0.4, c).astype(f32)}
+
+    bb, bbs = {}, {}
+    bb["input_conv"] = {"kernel": kernel(3, 3, 3, 64)}
+    bb["input_bn"], bbs["input_bn"] = bn(64)
+    bb["input_prelu"] = slopes(64)
+    unit = 0
+    for in_c, out_c, n_units in plan:
+        for u in range(n_units):
+            cin = in_c if u == 0 else out_c
+            b, bs = {}, {}
+            b["bn1"], bs["bn1"] = bn(cin)
+            b["conv1"] = {"kernel": kernel(3, 3, cin, out_c)}
+            b["prelu"] = slopes(out_c)
+            b["conv2"] = {"kernel": kernel(3, 3, out_c, out_c)}
+            b["bn2"], bs["bn2"] = bn(out_c)
+            b["se"] = {"fc1": {"kernel": kernel(1, 1, out_c, out_c // 16)},
+                       "fc2": {"kernel": kernel(1, 1, out_c // 16, out_c)}}
+            if cin != out_c:
+                b["shortcut_conv"] = {"kernel": kernel(1, 1, cin, out_c)}
+                b["shortcut_bn"], bs["shortcut_bn"] = bn(out_c)
+            bb[f"body_{unit}"], bbs[f"body_{unit}"] = b, bs
+            unit += 1
+    fpn = plan[-1][1]
+    params = {"backbone": bb}
+    params["latlayer1"] = {"kernel": kernel(1, 1, plan[2][1], fpn),
+                           "bias": small(fpn)}
+    params["latlayer2"] = {"kernel": kernel(1, 1, plan[1][1], fpn),
+                           "bias": small(fpn)}
+    s16 = input_size // 16
+    for name, n_heads, spatial in (
+            ("coarse", coarse_ind, s16),
+            ("middle", middle_ind - coarse_ind, 2 * s16),
+            ("fine", n_styles - middle_ind, 4 * s16)):
+        heads = {}
+        for j in range(int(math.log2(spatial))):
+            cin = fpn if j == 0 else style_dim
+            heads[f"conv_{j}"] = {"kernel": kernel(n_heads, 3, 3, cin,
+                                                   style_dim),
+                                  "bias": small(n_heads, style_dim)}
+        heads["linear"] = {
+            "kernel": rng.normal(size=(n_heads, style_dim, style_dim)
+                                 ).astype(f32),
+            "bias": small(n_heads, style_dim)}
+        params[name] = {"heads": heads}
+    return {"params": params, "batch_stats": {"backbone": bbs},
+            "constants": {"latent_avg": small(n_styles, style_dim)}}
+
+
+def latent_vit_jax_params(latent_dim=512, seq_len=18, embed_dim=512,
+                          depth=6, mlp_dim=2048, num_classes=7, seed=1):
+    """Seeded LatentViT weights as a numpy tree in the JAX package's layout:
+    dense kernels N(0, 1/fan_in), LayerNorms near identity."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def dense(i, o):
+        return {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(f32),
+                "bias": (0.1 * rng.normal(size=o)).astype(f32)}
+
+    def norm(c):
+        return {"scale": (1 + 0.1 * rng.normal(size=c)).astype(f32),
+                "bias": (0.1 * rng.normal(size=c)).astype(f32)}
+
+    e = embed_dim
+    layers = {}
+    for i in range(depth):
+        qkv, out = dense(e, 3 * e), dense(e, e)
+        layers[f"layers_{i}"] = {
+            "self_attn": {"in_proj_kernel": qkv["kernel"],
+                          "in_proj_bias": qkv["bias"],
+                          "out_proj_kernel": out["kernel"],
+                          "out_proj_bias": out["bias"]},
+            "linear1": dense(e, mlp_dim), "linear2": dense(mlp_dim, e),
+            "norm1": norm(e), "norm2": norm(e)}
+    return {"params": {
+        "input_proj": dense(latent_dim, e),
+        "cls_token": rng.normal(size=(1, 1, e)).astype(f32),
+        "pos_emb": rng.normal(size=(1, seq_len + 1, e)).astype(f32),
+        "transformer": layers, "head_norm": norm(e),
+        "head": dense(e, num_classes)}}
+
+
+def build_slice(torch, device, dtype, psp_sd, vit_sd, batch_size):
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.models import LatentViT
+    from fer_vit_tpu_torch.serve import Predictor
+
+    psp = EncoderWrapper(psp_sd, dtype=dtype, device=device)
+    model = LatentViT(dtype=dtype)
+    model.load_state_dict(vit_sd, strict=True)
+    return Predictor(model, psp=psp, batch_size=batch_size,
+                     pipeline_depth=SLICE_DEPTH, device=device)
+
+
+def phase_slice(torch, dev_info) -> dict:
+    from fer_vit_tpu_torch.interop.from_jax import (
+        latent_vit_state_dict_from_jax, psp_state_dict_from_jax)
+    from fer_vit_tpu_torch.ops.fused_irse_unit import fused_irse_residual
+
+    psp_sd = psp_state_dict_from_jax(psp_jax_variables())
+    vit_sd = latent_vit_state_dict_from_jax(latent_vit_jax_params())
+    pred = build_slice(torch, None, None, psp_sd, vit_sd, SLICE_BATCH)
+    check(pred.device.type == "cuda", f"predictor on {pred.device}")
+    pred.warmup()
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(5)
+    requests = [rng.integers(0, 256, (n, 256, 256, 3), dtype=np.uint8)
+                for n in REQUEST_SIZES]
+
+    # the main path: three requests through the Predictor's entry point
+    fused_irse_residual.launches = 0
+    t0 = time.perf_counter()
+    outs = [pred.predict(r) for r in requests]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"fused_irse_unit": fused_irse_residual.launches}
+    n_batches = sum(-(-n // SLICE_BATCH) for n in REQUEST_SIZES)
+    log(f"slice: {len(requests)} requests of {list(REQUEST_SIZES)} images, "
+        f"{n_batches} batches of {SLICE_BATCH}, fused_irse_unit launches "
+        f"{launches['fused_irse_unit']}, {elapsed:.3f} s")
+    check(launches["fused_irse_unit"] == 24 * n_batches,
+          f"fused_irse_unit launched {launches['fused_irse_unit']} times, "
+          f"expected {24 * n_batches}")
+    for n, (labels, probs) in zip(REQUEST_SIZES, outs):
+        check(labels.shape == (n,) and probs.shape == (n, 7),
+              f"shapes {labels.shape} {probs.shape} for {n} images")
+        check(bool(np.isfinite(probs).all()), "non-finite probabilities")
+        check(bool(np.allclose(probs.sum(axis=1), 1.0, atol=1e-5)),
+              "probability rows do not sum to 1")
+        check(bool(((labels >= 0) & (labels < 7)).all()), "bad labels")
+
+    # throughput at steady state: 4 full batches
+    imgs = rng.integers(0, 256, (4 * SLICE_BATCH, 256, 256, 3),
+                        dtype=np.uint8)
+    t0 = time.perf_counter()
+    pred.predict(imgs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"slice throughput on {dev_info['card']}: {len(imgs) / dt:.2f} "
+        f"images/s, {1e3 * dt / 4:.1f} ms per batch of {SLICE_BATCH} "
+        f"(bf16, pipeline depth {SLICE_DEPTH})")
+    # where a batch's time goes, by module (CUDA events, one full batch)
+    from fer_vit_tpu_torch.encoders.psp import preprocess_images
+
+    with torch.inference_mode():
+        raw = torch.from_numpy(imgs[:SLICE_BATCH]).cuda()
+        x = preprocess_images(raw, size=pred.input_size)
+        w = pred.psp.encoder(x)
+        split = {
+            "preprocess": time_ms(torch, lambda: preprocess_images(
+                raw, size=pred.input_size)),
+            "pSp encoder": time_ms(torch, lambda: pred.psp.encoder(x)),
+            "LatentViT": time_ms(torch, lambda: pred.model(w)),
+        }
+    log(f"slice split per batch of {SLICE_BATCH} on {dev_info['card']}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+
+    # the same weights on the CPU in f32 (the plain fused unit), 2 images
+    first = requests[2][:2]
+    cpu = build_slice(torch, "cpu", torch.float32, psp_sd, vit_sd, 2)
+    t0 = time.perf_counter()
+    cpu_labels, cpu_probs = cpu.predict(first)
+    log(f"slice: CPU f32 reference on 2 images in "
+        f"{time.perf_counter() - t0:.1f} s")
+    labels, probs = outs[2][0][:2], outs[2][1][:2]
+    dp = float(np.abs(probs - cpu_probs).max())
+    w_cpu = cpu.psp.encode_batch(first)
+
+    def w_rel(pred_):
+        """Relative L2 error of the card's w+ against the CPU's."""
+        w = pred_.psp.encode_batch(first).cpu()
+        return float((w - w_cpu).norm() / w_cpu.norm())
+
+    dw = w_rel(pred)
+    top2 = np.sort(cpu_probs, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > BF16_MARGIN
+    agree = labels == cpu_labels
+    log(f"slice: card bf16 vs CPU f32: max |dprob| {dp:.3e} (tol "
+        f"{BF16_PROB_TOL}), w+ relative L2 error {dw:.3e} (tol "
+        f"{BF16_W_RTOL}), labels agree {agree.tolist()}, CPU top-2 "
+        f"margins {(top2[:, 1] - top2[:, 0]).round(4).tolist()}")
+    check(dp <= BF16_PROB_TOL and dw <= BF16_W_RTOL
+          and bool(agree[clear].all()),
+          "bf16 card run disagrees with the CPU f32 run")
+
+    f32 = build_slice(torch, None, torch.float32, psp_sd, vit_sd, 2)
+    f_labels, f_probs = f32.predict(first)
+    dp32 = float(np.abs(f_probs - cpu_probs).max())
+    dw32 = w_rel(f32)
+    log(f"slice: card f32 vs CPU f32: max |dprob| {dp32:.3e} (tol "
+        f"{F32_PROB_TOL}), w+ relative L2 error {dw32:.3e} (tol "
+        f"{F32_W_RTOL}), labels agree {(f_labels == cpu_labels).tolist()}")
+    check(dp32 <= F32_PROB_TOL and dw32 <= F32_W_RTOL
+          and bool((f_labels == cpu_labels).all()),
+          "f32 card run disagrees with the CPU f32 run")
+    return launches
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

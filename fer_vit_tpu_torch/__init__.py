@@ -1,0 +1,24 @@
+"""fer_vit_tpu_torch — the PyTorch/CUDA port of ``fer_vit_tpu``.
+
+A second package beside the JAX one, for NVIDIA Hopper GPUs. It imports
+``torch`` and numpy only: never ``jax`` and nothing of ``fer_vit_tpu``. The
+JAX package is its reference; the tests hold each ported module against its
+JAX counterpart on the same weights and inputs.
+
+Package map:
+
+* :mod:`fer_vit_tpu_torch.core`     — dtype and device policy
+* :mod:`fer_vit_tpu_torch.ops`      — hand-written CUDA kernels with their plain versions
+* :mod:`fer_vit_tpu_torch.nn`       — transformer layers
+* :mod:`fer_vit_tpu_torch.models`   — LatentViT
+* :mod:`fer_vit_tpu_torch.encoders` — pSp GradualStyleEncoder over IR-SE50
+* :mod:`fer_vit_tpu_torch.interop`  — weights from the JAX package's variables
+* :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent route)
+"""
+
+__version__ = "0.1.0"
+
+# The 7 emotion classes (the same tuple as the JAX package's).
+EMOTION_NAMES = ("angry", "disgust", "fear", "happy", "neutral", "sad", "surprise")
+EMOTION_TO_INDEX = {name: i for i, name in enumerate(EMOTION_NAMES)}
+NUM_CLASSES = len(EMOTION_NAMES)

@@ -1,0 +1,137 @@
+"""The port stands alone: ``fer_vit_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, entry points refuse to fall back to the CPU
+silently, and the smoke script's seeded weight trees have the JAX package's
+exact layout (so its weights reach the port through the same bridge the
+parity tests use)."""
+
+import ast
+import importlib.util
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "fer_vit_tpu_torch"
+
+
+def _modules():
+    import fer_vit_tpu_torch
+
+    return sorted(m.name for m in pkgutil.walk_packages(
+        fer_vit_tpu_torch.__path__, "fer_vit_tpu_torch."))
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = _modules()
+    assert "fer_vit_tpu_torch.ops.fused_irse_unit" in mods
+    assert "fer_vit_tpu_torch.serve" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['fer_vit_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'fer_vit_tpu.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('IMPORTED', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "IMPORTED" in res.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_sources_import_no_jax_and_no_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "flax", "optax",
+                               "fer_vit_tpu"), f"{f} imports {name}"
+
+
+def test_entry_points_need_cuda_unless_asked_for_cpu():
+    from fer_vit_tpu_torch.core.dtypes import compute_dtype, resolve_device
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EncoderWrapper()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+    assert compute_dtype(torch.device("cpu")) == torch.float32
+    assert compute_dtype(torch.device("cuda")) == torch.bfloat16
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _shapes(tree):
+    return {jax.tree_util.keystr(p): tuple(v.shape)
+            for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+def test_chip_smoke_weight_trees_have_the_jax_layout():
+    from fer_vit_tpu.encoders.psp import PSpEncoder
+    from fer_vit_tpu.models import LatentViT
+    from tests.torch_port_common import TINY_PLAN
+
+    smoke = _chip_smoke()
+    enc = PSpEncoder(plan=TINY_PLAN, input_size=32, style_dim=16)
+    want = jax.eval_shape(enc.init, jax.random.key(0),
+                          jnp.zeros((1, 32, 32, 3)))
+    got = smoke.psp_jax_variables(plan=TINY_PLAN, input_size=32,
+                                  style_dim=16)
+    assert _shapes(got) == _shapes(want)
+    model = LatentViT(latent_dim=16, embed_dim=32, depth=2, heads=2,
+                      mlp_dim=64)
+    want = jax.eval_shape(model.init, jax.random.key(0),
+                          jnp.zeros((1, 18, 16)))
+    got = smoke.latent_vit_jax_params(latent_dim=16, embed_dim=32, depth=2,
+                                      mlp_dim=64)
+    assert _shapes(got) == _shapes(want)
+    assert len(smoke.IRSE50_UNIT_SHAPES) == 8
+    assert sum(s[-1] for s in smoke.IRSE50_UNIT_SHAPES) == 24
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card it exits non-zero and prints no result line; alone in
+    a directory (no package beside it) it does the same."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=""))
+    assert res.returncode != 0 and '"ok"' not in res.stdout
