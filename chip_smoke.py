@@ -10,14 +10,23 @@ Phases, in order; any failure exits non-zero before the result line:
    its build time and the registers, shared memory and spills ptxas reports.
 2. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, in f32 and bf16, plus edge cases and a
-   gradient check; then per shape the kernel's time, the plain version's,
-   a cuDNN yardstick's and the bound, all with CUDA events.
-3. slice: the main path at full width. ``EncoderWrapper`` (pSp over IR-SE50,
-   256 px, BN folded, fused residual units, bf16) feeds ``LatentViT`` (depth
-   6, 512 wide) behind ``Predictor``; weights are random, from a seed, in the
-   JAX package's layout and go through the port's bridge. It serves three
-   requests, checks the kernels' launch counts, and compares the card with
-   the same modules run on the CPU in f32.
+   gradient check; then the kernel's time, the plain version's, a yardstick's
+   (cuDNN for the fused IR-SE unit, ``scaled_dot_product_attention`` for the
+   fused attention) and the bound, all with CUDA events. The fused IR-SE
+   unit (K1) first, then the fused attention (K2), which must also give
+   bit-identical results on two launches.
+3. latent slice: ``EncoderWrapper`` (pSp over IR-SE50, 256 px, BN folded,
+   fused residual units, bf16) feeds ``LatentViT`` (depth 6, 512 wide)
+   behind ``Predictor``.
+4. image slice: ``ImageViT`` at the width of ViT-Base/16 at 224 px (12
+   layers, 768 wide, 197 tokens) behind ``Predictor(image_route=True)``.
+
+Both slices run at full width with random weights, made from a seed in the
+JAX package's layout and carried over by the port's bridge. Each serves
+three requests with every kernel's launch count set to 0 just before and
+read just after, checks the counts and the outputs, times a few full
+batches and splits one by module, and compares the card (bf16, then f32)
+with the same modules run on the CPU in f32.
 
 The line before the last is a JSON object listing every kernel; the last line
 is ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
@@ -67,6 +76,34 @@ EDGE_CASES = (
     (24, 12, 64, 64, 1),
     (20, 12, 64, 128, 2),
 )
+
+
+# K2 (fused attention) at the image slice's shape: ViT-Base/16 at 224 px,
+# batch 64 -> (B, heads, tokens, head dim).
+IMAGE_BATCH = 64
+ATTN_MAIN = (IMAGE_BATCH, 12, 197, 64)
+# Edge cases (B, H, L, Dh): one token; L ragged against the 64-row tiles
+# and key chunks (37, 129, 257); L at the dispatch threshold (128); head
+# dims below 64 (32, 48) and one that is not a multiple of 8 (36: scalar
+# staging and zero fill up to 48); a single (batch, head).
+ATTN_EDGE = (
+    (2, 3, 1, 64),
+    (2, 3, 37, 64),
+    (2, 3, 128, 64),
+    (2, 3, 129, 64),
+    (2, 3, 257, 64),
+    (2, 3, 197, 32),
+    (2, 3, 197, 48),
+    (2, 3, 197, 36),
+    (1, 1, 197, 64),
+)
+# Kernel vs plain in f32: both take f32 scores and softmax; the kernel's
+# 3xTF32 products keep about 2^-22 of each term and its row sums are taken
+# chunk by chunk with a rescale, the plain version's by cuBLAS and torch's
+# softmax, so they differ in the last bits (read on an H100: 1.4e-6 at
+# |out| <= 1.5).
+ATTN_F32_ATOL = 1e-5
+ATTN_F32_RTOL = 1e-5
 
 
 class SmokeError(RuntimeError):
@@ -304,8 +341,125 @@ def phase_kernels(torch) -> dict:
                                            for k, v in totals.items()))
     bound_by = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
                 else "bytes")
-    return {"fused_irse_unit": dict(totals, max_abs_err=max_err_bf16,
-                                    bound_by=bound_by, rows=rows)}
+    return {"fused_irse_unit": dict(
+        totals, max_abs_err=max_err_bf16, bound_by=bound_by, rows=rows,
+        timed=f"per forward, 24 units at batch {SLICE_BATCH}")}
+
+
+def attention_inputs(torch, B, H, L, dh, seed, device, dtype, packed=False):
+    """q, k, v (B, H, L, Dh), N(0, 1). ``packed``: head-split views of one
+    (B, L, 3 H Dh) tensor, as a transformer layer hands them over."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.normal(size=(B, L, 3 * H * dh)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    views = [t.reshape(B, L, H, dh).transpose(1, 2)
+             for t in qkv.chunk(3, dim=-1)]
+    return views if packed else [t.contiguous() for t in views]
+
+
+def compare_attention(torch, got, ref, dtype) -> dict:
+    """Kernel vs plain, with the tolerance of the dtype.
+
+    f32: |d| <= ATTN_F32_ATOL + ATTN_F32_RTOL |ref|.
+    bf16: both round the weights to bf16 before the product with V and
+    accumulate in f32, so they agree to one bf16 ulp of the output, except
+    where the two f32 softmaxes (an ulp apart) round a weight to
+    neighbouring bf16 values: such a flip moves an output by up to a
+    weight's ulp times |v|. So every element within 1 ulp + 2^-9 max|ref|
+    (the fused IR-SE unit's limit), and at most 0.1 % beyond one ulp.
+    """
+    g, r = got.float(), ref.float()
+    d = (g - r).abs()
+    if dtype == torch.float32:
+        ok = bool((d <= ATTN_F32_ATOL + ATTN_F32_RTOL * r.abs()).all())
+        beyond = float("nan")
+    else:
+        ulp = bf16_ulp(torch, r)
+        beyond = float((d > ulp).float().mean())
+        ok = bool((d <= ulp + 2.0 ** -9 * r.abs().max()).all()) and (
+            beyond <= 1e-3)
+    return {"ok": ok, "err": float(d.max()), "beyond_ulp": beyond,
+            "scale": float(r.abs().max())}
+
+
+def attention_bound_ms(B, H, L, dh, itemsize=2):
+    """Least time on the card, as (operations ms, bytes ms). Operations: the
+    two products, 4 B H L^2 Dh, at the bf16 tensor peak. Bytes: q, k, v
+    read once and the output written once, at the HBM rate."""
+    flops = 4 * B * H * L * L * dh
+    nbytes = 4 * B * H * L * dh * itemsize
+    return 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES
+
+
+def phase_attention(torch) -> dict:
+    import torch.nn.functional as F
+
+    from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
+                                                       fused_attention_plain)
+
+    dev = torch.device("cuda")
+    failures = []
+    max_err_bf16 = 0.0
+    cases = [(ATTN_MAIN, True)] + [(c, False) for c in ATTN_EDGE]
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, ((B, H, L, dh), packed) in enumerate(cases):
+            q, k, v = attention_inputs(torch, B, H, L, dh, 300 + i, dev,
+                                       dtype, packed)
+            got = fused_attention(q, k, v)
+            torch.cuda.synchronize()
+            ref = fused_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            c = compare_attention(torch, got, ref, dtype)
+            log(f"check flash_attention {str(dtype)[6:]} "
+                f"{(B, H, L, dh)}{' packed qkv' if packed else ''}: err "
+                f"{c['err']:.3e} (max|out| {c['scale']:.3f}, beyond 1 ulp "
+                f"{c['beyond_ulp']:.2e}) {'ok' if c['ok'] else 'FAIL'}")
+            if not c["ok"]:
+                failures.append(f"{dtype} {(B, H, L, dh)}")
+            if dtype == torch.bfloat16 and packed:
+                max_err_bf16 = c["err"]
+
+    # gradient through the autograd Function (kernel forward, plain
+    # backward) vs autograd through the plain version
+    args = attention_inputs(torch, 2, 2, 130, 32, 7, dev, torch.float32)
+    grads = []
+    for fn in (fused_attention, fused_attention_plain):
+        ps = [a.clone().requires_grad_(True) for a in args]
+        (fn(*ps) ** 2).sum().backward()
+        grads.append([p.grad for p in ps])
+    gerr = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    log(f"check flash_attention grad f32 (2, 2, 130, 32): max err {gerr:.3e}")
+    if gerr > 1e-4:
+        failures.append(f"gradient error {gerr}")
+
+    # two launches on the same inputs give the same bits
+    q, k, v = attention_inputs(torch, *ATTN_MAIN, 9, dev, torch.bfloat16,
+                               packed=True)
+    same = torch.equal(fused_attention(q, k, v), fused_attention(q, k, v))
+    log(f"check flash_attention bf16 {ATTN_MAIN}: two launches "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        failures.append("two launches differ")
+    check(not failures, f"flash_attention disagrees with its plain version: "
+          f"{failures}")
+
+    # times at the main path's shape and layout, bf16
+    t_k = time_ms(torch, lambda: fused_attention(q, k, v))
+    t_p = time_ms(torch, lambda: fused_attention_plain(q, k, v))
+    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    ops_ms, bytes_ms = attention_bound_ms(*ATTN_MAIN)
+    bound = max(ops_ms, bytes_ms)
+    log(f"time flash_attention bf16 {ATTN_MAIN} packed qkv, per call: "
+        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"scaled_dot_product_attention {t_l:.4f} ms, bound {bound:.4f} ms "
+        f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f}; "
+        f"{t_k / bound:.1f}x bound); per forward (12 calls): kernel "
+        f"{12 * t_k:.4f} ms, bound {12 * bound:.4f} ms")
+    return {"flash_attention": {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+        "ops_ms": ops_ms, "bytes_ms": bytes_ms, "max_abs_err": max_err_bf16,
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "timed": f"per call at {ATTN_MAIN}"}}
 
 
 # -- main ---------------------------------------------------------------------
@@ -328,7 +482,12 @@ def main() -> int:
 
     dev_info = phase_device(torch)
     kernels = phase_kernels(torch)
-    launches = phase_slice(torch, dev_info)
+    kernels.update(phase_attention(torch))
+    # each kernel's launches on the path that runs it
+    launches = {"fused_irse_unit": phase_slice(torch, dev_info)[
+        "fused_irse_unit"]}
+    launches["flash_attention"] = phase_image_slice(torch, dev_info)[
+        "flash_attention"]
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
@@ -343,16 +502,26 @@ KERNEL_META = {
         "source": "fer_vit_tpu_torch/csrc/fused_irse_unit.cu",
         "replaces": "fer_vit_tpu/ops/fused_irse_unit.py:86",
     },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "fer_vit_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "fer_vit_tpu/ops/flash_attention.py:35",
+    },
 }
 
 
 def kernel_entry(name: str, k: dict, launches: dict) -> dict:
-    return {"name": name, **KERNEL_META[name],
-            "launches": launches[name],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": None,
-            "yardstick_ms": k["yardstick_ms"]}
+    """The kernels line's entry; ``library_ms`` is null where no single
+    PyTorch call computes the kernel's function."""
+    entry = {"name": name, **KERNEL_META[name],
+             "launches": launches[name],
+             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+             "bound_by": k["bound_by"],
+             "library_ms": k.get("library_ms"), "timed": k["timed"]}
+    if "yardstick_ms" in k:
+        entry["yardstick_ms"] = k["yardstick_ms"]
+    return entry
 
 
 # -- phase 3: the slice -------------------------------------------------------
@@ -495,6 +664,7 @@ def build_slice(torch, device, dtype, psp_sd, vit_sd, batch_size):
 def phase_slice(torch, dev_info) -> dict:
     from fer_vit_tpu_torch.interop.from_jax import (
         latent_vit_state_dict_from_jax, psp_state_dict_from_jax)
+    from fer_vit_tpu_torch.ops.flash_attention import fused_attention
     from fer_vit_tpu_torch.ops.fused_irse_unit import fused_irse_residual
 
     psp_sd = psp_state_dict_from_jax(psp_jax_variables())
@@ -508,19 +678,22 @@ def phase_slice(torch, dev_info) -> dict:
                 for n in REQUEST_SIZES]
 
     # the main path: three requests through the Predictor's entry point
-    fused_irse_residual.launches = 0
+    fused_irse_residual.launches = fused_attention.launches = 0
     t0 = time.perf_counter()
     outs = [pred.predict(r) for r in requests]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"fused_irse_unit": fused_irse_residual.launches}
+    launches = {"fused_irse_unit": fused_irse_residual.launches,
+                "flash_attention": fused_attention.launches}
     n_batches = sum(-(-n // SLICE_BATCH) for n in REQUEST_SIZES)
     log(f"slice: {len(requests)} requests of {list(REQUEST_SIZES)} images, "
-        f"{n_batches} batches of {SLICE_BATCH}, fused_irse_unit launches "
-        f"{launches['fused_irse_unit']}, {elapsed:.3f} s")
-    check(launches["fused_irse_unit"] == 24 * n_batches,
-          f"fused_irse_unit launched {launches['fused_irse_unit']} times, "
-          f"expected {24 * n_batches}")
+        f"{n_batches} batches of {SLICE_BATCH}, launches {launches}, "
+        f"{elapsed:.3f} s")
+    # LatentViT attends over 19 tokens: below the fused kernel's threshold
+    check(launches == {"fused_irse_unit": 24 * n_batches,
+                       "flash_attention": 0},
+          f"latent slice launches {launches}, expected "
+          f"{24 * n_batches} fused_irse_unit and 0 flash_attention")
     for n, (labels, probs) in zip(REQUEST_SIZES, outs):
         check(labels.shape == (n,) and probs.shape == (n, 7),
               f"shapes {labels.shape} {probs.shape} for {n} images")
@@ -593,6 +766,204 @@ def phase_slice(torch, dev_info) -> dict:
     check(dp32 <= F32_PROB_TOL and dw32 <= F32_W_RTOL
           and bool((f_labels == cpu_labels).all()),
           "f32 card run disagrees with the CPU f32 run")
+    return launches
+
+
+# -- phase 4: the image slice ---------------------------------------------------
+
+IMAGE_SIZE = 224
+IMAGE_REQUEST_SIZES = (1, 7, 70)  # 70 = one full batch of 64 and a ragged 6
+# bf16 on the card vs f32 on the CPU, on 2 images, through 12 post-norm
+# layers. Limits, from readings on an H100: the class probabilities within
+# 2e-2 (read 5.1e-3), the final CLS features within a relative L2 error of
+# 3e-2 (read 1.05e-2), and the labels agree wherever the f32 top two
+# probabilities are more than 0.1 apart. A kernel that scores padded keys 0
+# instead of -inf reads 0.119 and 0.48; one that drops the running rescale
+# of the row sums reads 0.061 and 0.16.
+IMAGE_BF16_PROB_TOL = 2e-2
+IMAGE_BF16_FEAT_RTOL = 3e-2
+IMAGE_BF16_MARGIN = 0.1
+# f32 on the card (the kernel's f32 instantiation, TF32 off) vs f32 on the
+# CPU: the same arithmetic in other summation orders (read on an H100:
+# probabilities 2.1e-7, features 8.5e-7).
+IMAGE_F32_PROB_TOL = 1e-4
+IMAGE_F32_FEAT_RTOL = 1e-4
+
+
+def image_vit_jax_params(img_size=IMAGE_SIZE, patch_size=16, embed_dim=768,
+                         depth=12, mlp_dim=3072, num_classes=7, seed=2):
+    """Seeded ImageViT weights as a numpy tree in the JAX package's layout:
+    the patch kernel (HWIO) and dense kernels N(0, 1/fan_in), small biases,
+    LayerNorms near identity, CLS and positions N(0, 0.02^2) as the model's
+    own init draws them."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def dense(i, o):
+        return {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(f32),
+                "bias": (0.1 * rng.normal(size=o)).astype(f32)}
+
+    def norm(c):
+        return {"scale": (1 + 0.1 * rng.normal(size=c)).astype(f32),
+                "bias": (0.1 * rng.normal(size=c)).astype(f32)}
+
+    e, p = embed_dim, patch_size
+    fan_in = 3 * p * p
+    layers = {}
+    for i in range(depth):
+        qkv, out = dense(e, 3 * e), dense(e, e)
+        layers[f"layers_{i}"] = {
+            "self_attn": {"in_proj_kernel": qkv["kernel"],
+                          "in_proj_bias": qkv["bias"],
+                          "out_proj_kernel": out["kernel"],
+                          "out_proj_bias": out["bias"]},
+            "linear1": dense(e, mlp_dim), "linear2": dense(mlp_dim, e),
+            "norm1": norm(e), "norm2": norm(e)}
+    n_tokens = (img_size // p) ** 2 + 1
+    return {"params": {
+        "patch_embed": {"proj": {
+            "kernel": (rng.normal(size=(p, p, 3, e))
+                       / np.sqrt(fan_in)).astype(f32),
+            "bias": (0.1 * rng.normal(size=e)).astype(f32)}},
+        "cls_token": (0.02 * rng.normal(size=(1, 1, e))).astype(f32),
+        "pos_embed": (0.02 * rng.normal(size=(1, n_tokens, e))).astype(f32),
+        "transformer": layers, "norm": norm(e),
+        "head": dense(e, num_classes)}}
+
+
+def build_image_slice(torch, device, dtype, sd, batch_size):
+    from fer_vit_tpu_torch.models import create_vit_base
+    from fer_vit_tpu_torch.serve import Predictor
+
+    model = create_vit_base(img_size=IMAGE_SIZE, dtype=dtype)
+    model.load_state_dict(sd, strict=True)
+    return Predictor(model, image_route=True, batch_size=batch_size,
+                     pipeline_depth=SLICE_DEPTH, device=device)
+
+
+def phase_image_slice(torch, dev_info) -> dict:
+    from fer_vit_tpu_torch.data.image_pipeline import normalize_images
+    from fer_vit_tpu_torch.encoders.psp import to_unit_floats
+    from fer_vit_tpu_torch.interop.from_jax import (
+        image_vit_state_dict_from_jax)
+    from fer_vit_tpu_torch.nn.transformer import layer_norm, linear
+    from fer_vit_tpu_torch.ops.flash_attention import fused_attention
+    from fer_vit_tpu_torch.ops.fused_irse_unit import fused_irse_residual
+
+    sd = image_vit_state_dict_from_jax(image_vit_jax_params())
+    pred = build_image_slice(torch, None, None, sd, IMAGE_BATCH)
+    check(pred.device.type == "cuda", f"predictor on {pred.device}")
+    check(pred.describe()["route"] == "image", f"{pred.describe()}")
+    pred.warmup()
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(6)
+    requests = [rng.integers(0, 256, (n, IMAGE_SIZE, IMAGE_SIZE, 3),
+                             dtype=np.uint8) for n in IMAGE_REQUEST_SIZES]
+
+    # the main path: three requests through the Predictor's entry point
+    fused_irse_residual.launches = fused_attention.launches = 0
+    t0 = time.perf_counter()
+    outs = [pred.predict(r) for r in requests]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {"fused_irse_unit": fused_irse_residual.launches,
+                "flash_attention": fused_attention.launches}
+    n_batches = sum(-(-n // IMAGE_BATCH) for n in IMAGE_REQUEST_SIZES)
+    log(f"image slice: {len(requests)} requests of "
+        f"{list(IMAGE_REQUEST_SIZES)} images, {n_batches} batches of "
+        f"{IMAGE_BATCH}, launches {launches}, {elapsed:.3f} s")
+    check(launches == {"fused_irse_unit": 0,
+                       "flash_attention": 12 * n_batches},
+          f"image slice launches {launches}, expected "
+          f"{12 * n_batches} flash_attention and 0 fused_irse_unit")
+    for n, (labels, probs) in zip(IMAGE_REQUEST_SIZES, outs):
+        check(labels.shape == (n,) and probs.shape == (n, 7),
+              f"shapes {labels.shape} {probs.shape} for {n} images")
+        check(bool(np.isfinite(probs).all()), "non-finite probabilities")
+        check(bool(np.allclose(probs.sum(axis=1), 1.0, atol=1e-5)),
+              "probability rows do not sum to 1")
+        check(bool(((labels >= 0) & (labels < 7)).all()), "bad labels")
+
+    # throughput at steady state: 4 full batches
+    imgs = rng.integers(0, 256, (4 * IMAGE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
+                        dtype=np.uint8)
+    t0 = time.perf_counter()
+    pred.predict(imgs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"image slice throughput on {dev_info['card']}: "
+        f"{len(imgs) / dt:.2f} images/s, {1e3 * dt / 4:.1f} ms per batch of "
+        f"{IMAGE_BATCH} (bf16, pipeline depth {SLICE_DEPTH})")
+    # where a batch's time goes, by module (CUDA events, one full batch)
+    model = pred.model
+    with torch.inference_mode():
+        raw = torch.from_numpy(imgs[:IMAGE_BATCH]).cuda()
+
+        def normalize():
+            return normalize_images(to_unit_floats(raw), out_size=IMAGE_SIZE,
+                                    already_01=True)
+
+        x = normalize()
+        tok = model.tokens(x)
+        hid = model.transformer(tok)
+        split = {
+            "normalize": time_ms(torch, normalize),
+            "patch embed": time_ms(torch, lambda: model.tokens(x)),
+            "transformer": time_ms(torch, lambda: model.transformer(tok)),
+            "head": time_ms(torch, lambda: linear(
+                layer_norm(hid[:, 0], model.norm), model.head).float()),
+        }
+    log(f"image slice split per batch of {IMAGE_BATCH} on "
+        f"{dev_info['card']}: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+
+    # the same weights on the CPU in f32, 2 images
+    first = requests[2][:2]
+    cpu = build_image_slice(torch, "cpu", torch.float32, sd, 2)
+    t0 = time.perf_counter()
+    cpu_labels, cpu_probs = cpu.predict(first)
+    log(f"image slice: CPU f32 reference on 2 images in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def features(pred_):
+        """The final normalised CLS features of the 2 images, f32 on the
+        CPU."""
+        x = torch.from_numpy(first).to(pred_.device)
+        with torch.inference_mode():
+            x = normalize_images(to_unit_floats(x), out_size=IMAGE_SIZE,
+                                 already_01=True)
+            return pred_.model.features(x).float().cpu()
+
+    f_cpu = features(cpu)
+
+    def feat_rel(pred_):
+        return float((features(pred_) - f_cpu).norm() / f_cpu.norm())
+
+    labels, probs = outs[2][0][:2], outs[2][1][:2]
+    dp = float(np.abs(probs - cpu_probs).max())
+    df = feat_rel(pred)
+    top2 = np.sort(cpu_probs, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > IMAGE_BF16_MARGIN
+    agree = labels == cpu_labels
+    log(f"image slice: card bf16 vs CPU f32: max |dprob| {dp:.3e} (tol "
+        f"{IMAGE_BF16_PROB_TOL}), CLS features relative L2 error {df:.3e} "
+        f"(tol {IMAGE_BF16_FEAT_RTOL}), labels agree {agree.tolist()}, CPU "
+        f"top-2 margins {(top2[:, 1] - top2[:, 0]).round(4).tolist()}")
+    check(dp <= IMAGE_BF16_PROB_TOL and df <= IMAGE_BF16_FEAT_RTOL
+          and bool(agree[clear].all()),
+          "image slice: bf16 card run disagrees with the CPU f32 run")
+
+    f32 = build_image_slice(torch, None, torch.float32, sd, 2)
+    f_labels, f_probs = f32.predict(first)
+    dp32 = float(np.abs(f_probs - cpu_probs).max())
+    df32 = feat_rel(f32)
+    log(f"image slice: card f32 vs CPU f32: max |dprob| {dp32:.3e} (tol "
+        f"{IMAGE_F32_PROB_TOL}), CLS features relative L2 error {df32:.3e} "
+        f"(tol {IMAGE_F32_FEAT_RTOL}), labels agree "
+        f"{(f_labels == cpu_labels).tolist()}")
+    check(dp32 <= IMAGE_F32_PROB_TOL and df32 <= IMAGE_F32_FEAT_RTOL
+          and bool((f_labels == cpu_labels).all()),
+          "image slice: f32 card run disagrees with the CPU f32 run")
     return launches
 
 

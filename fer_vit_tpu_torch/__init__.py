@@ -8,12 +8,14 @@ JAX counterpart on the same weights and inputs.
 Package map:
 
 * :mod:`fer_vit_tpu_torch.core`     — dtype and device policy
-* :mod:`fer_vit_tpu_torch.ops`      — hand-written CUDA kernels with their plain versions
-* :mod:`fer_vit_tpu_torch.nn`       — transformer layers
-* :mod:`fer_vit_tpu_torch.models`   — LatentViT
+* :mod:`fer_vit_tpu_torch.ops`      — hand-written CUDA kernels (fused IR-SE
+  unit, fused attention) with their plain versions
+* :mod:`fer_vit_tpu_torch.nn`       — transformer layers and initializers
+* :mod:`fer_vit_tpu_torch.models`   — LatentViT and ImageViT
 * :mod:`fer_vit_tpu_torch.encoders` — pSp GradualStyleEncoder over IR-SE50
+* :mod:`fer_vit_tpu_torch.data`     — the image route's eval normalisation
 * :mod:`fer_vit_tpu_torch.interop`  — weights from the JAX package's variables
-* :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent route)
+* :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent and image routes)
 """
 
 __version__ = "0.1.0"

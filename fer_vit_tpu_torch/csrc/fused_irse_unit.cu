@@ -57,28 +57,16 @@
 // above, mma.sync in place of wgmma, and B re-read from L2 by every block and
 // every m-chunk rather than staged in shared memory by TMA.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stddef.h>
-#include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMC = 4;  // m-tiles (16 pixels) per warp item
 constexpr int kNC = 2;  // n-tiles (8 channels) per warp item
-
-// Per-type constants: channels per k-step (32 bytes), per ldmatrix column
-// half and per 16-byte row pad.
-template <typename T>
-struct Elems {
-  static constexpr int kK = 32 / (int)sizeof(T);
-  static constexpr int kHalf = 16 / (int)sizeof(T);
-  static constexpr int kPad = 16 / (int)sizeof(T);
-};
 
 struct Geometry {
   int H, W, H2, W2, cin, cout, s, th, tw;
@@ -111,69 +99,6 @@ struct Geometry {
 // it (the caller zeroes pixels outside the image).
 __device__ __forceinline__ float affine(float x, float a, float b) {
   return __fadd_rn(__fmul_rn(x, a), b);
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Stores the channel pair (v0, v1) at p, rounded to T.
-__device__ __forceinline__ void store2(float* p, float v0, float v1) {
-  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-}
-__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// f32 bits x -> (hi, lo), both tf32, with x = hi + lo to about 2^-22.
-template <int N>
-__device__ __forceinline__ void split_tf32(const uint32_t (&x)[N],
-                                           uint32_t (&hi)[N],
-                                           uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi[e]) : "f"(__uint_as_float(x[e])));
-    const float r = __uint_as_float(x[e]) - __uint_as_float(hi[e]);
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo[e]) : "f"(r));
-  }
-}
-
-__device__ __forceinline__ uint32_t ld_b32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // conv1 epilogue: PReLU on channels (co, co+1) of pixel p, zero outside the

@@ -219,14 +219,20 @@ def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return np.ascontiguousarray(w.T.astype(f32))
 
 
+def resize_images(x: torch.Tensor, size: int) -> torch.Tensor:
+    """NHWC x resized to ``size`` x ``size`` as ``jax.image.resize(...,
+    "linear")``: antialiased when shrinking; x itself when already that
+    size."""
+    if x.shape[1] == size and x.shape[2] == size:
+        return x
+    return _resample(x, resize_matrix(x.shape[1], size),
+                     resize_matrix(x.shape[2], size))
+
+
 def preprocess_images(images: torch.Tensor, size: int = 256) -> torch.Tensor:
     """(B, H, W, 3) images -> resized to ``size`` (linear, antialiased when
     shrinking, as ``jax.image.resize``), normalised to [-1, 1], f32."""
-    x = to_unit_floats(images)
-    if x.shape[1] != size or x.shape[2] != size:
-        x = _resample(x, resize_matrix(x.shape[1], size),
-                      resize_matrix(x.shape[2], size))
-    return (x - 0.5) / 0.5
+    return (resize_images(to_unit_floats(images), size) - 0.5) / 0.5
 
 
 class EncoderWrapper:

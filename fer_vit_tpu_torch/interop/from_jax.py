@@ -11,6 +11,8 @@ imports JAX) and writes the port's state dict:
   ``fer_vit_tpu/encoders/convert_psp.py::convert_encoder_state_dict``.
 * :func:`latent_vit_state_dict_from_jax`: ``LatentViT`` params -> the
   reference LatentViT names (``fer_vit_tpu/interop/torch_state.py``).
+* :func:`image_vit_state_dict_from_jax`: ``ImageViT`` params -> the
+  reference ImageViT names (the same file).
 
 It also keeps its own copy of the ``.npz`` (de)serialisation that
 ``convert_psp.py`` writes.
@@ -102,25 +104,21 @@ def psp_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
     return sd
 
 
-def latent_vit_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
-    """JAX ``LatentViT`` params (or variables holding ``params``) -> the
-    port's ``LatentViT`` state dict. Dense kernels (in, out) become Linear
-    weights (out, in); the packed ``in_proj`` (D, 3D) becomes (3D, D)."""
-    p = params.get("params", params)
-    sd: Dict[str, Tensor] = {}
+def _linear(sd: Dict[str, Tensor], prefix: str, node: Mapping) -> None:
+    """Dense kernel (in, out) -> Linear weight (out, in), plus the bias."""
+    sd[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    def linear(prefix, node):
-        sd[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).T)
-        sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    def norm(prefix, node):
-        sd[f"{prefix}.weight"] = _t(node["scale"])
-        sd[f"{prefix}.bias"] = _t(node["bias"])
+def _norm(sd: Dict[str, Tensor], prefix: str, node: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(node["scale"])
+    sd[f"{prefix}.bias"] = _t(node["bias"])
 
-    linear("input_proj", p["input_proj"])
-    sd["cls_token"] = _t(p["cls_token"])
-    sd["pos_emb"] = _t(p["pos_emb"])
-    tr = p["transformer"]
+
+def _encoder_layers(sd: Dict[str, Tensor], tr: Mapping) -> None:
+    """``layers_{i}`` of a JAX ``TransformerEncoder`` -> torch's
+    ``transformer.layers.{i}.*``; the packed ``in_proj`` (D, 3D) becomes
+    (3D, D)."""
     n_layers = sum(1 for k in tr if re.fullmatch(r"layers_\d+", k))
     for i in range(n_layers):
         layer, t = tr[f"layers_{i}"], f"transformer.layers.{i}"
@@ -131,12 +129,37 @@ def latent_vit_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
         sd[f"{t}.self_attn.out_proj.weight"] = _t(
             np.asarray(a["out_proj_kernel"]).T)
         sd[f"{t}.self_attn.out_proj.bias"] = _t(a["out_proj_bias"])
-        linear(f"{t}.linear1", layer["linear1"])
-        linear(f"{t}.linear2", layer["linear2"])
-        norm(f"{t}.norm1", layer["norm1"])
-        norm(f"{t}.norm2", layer["norm2"])
-    norm("mlp_head.0", p["head_norm"])
-    linear("mlp_head.1", p["head"])
+        _linear(sd, f"{t}.linear1", layer["linear1"])
+        _linear(sd, f"{t}.linear2", layer["linear2"])
+        _norm(sd, f"{t}.norm1", layer["norm1"])
+        _norm(sd, f"{t}.norm2", layer["norm2"])
+
+
+def latent_vit_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
+    """JAX ``LatentViT`` params (or variables holding ``params``) -> the
+    port's ``LatentViT`` state dict."""
+    p = params.get("params", params)
+    sd: Dict[str, Tensor] = {}
+    _linear(sd, "input_proj", p["input_proj"])
+    sd["cls_token"] = _t(p["cls_token"])
+    sd["pos_emb"] = _t(p["pos_emb"])
+    _encoder_layers(sd, p["transformer"])
+    _norm(sd, "mlp_head.0", p["head_norm"])
+    _linear(sd, "mlp_head.1", p["head"])
+    return sd
+
+
+def image_vit_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
+    """JAX ``ImageViT`` params (or variables holding ``params``) -> the
+    port's ``ImageViT`` state dict; the HWIO patch kernel becomes OIHW."""
+    p = params.get("params", params)
+    sd: Dict[str, Tensor] = {}
+    sd["cls_token"] = _t(p["cls_token"])
+    sd["pos_embed"] = _t(p["pos_embed"])
+    _conv(sd, "patch_embed.proj", p["patch_embed"]["proj"])
+    _encoder_layers(sd, p["transformer"])
+    _norm(sd, "norm", p["norm"])
+    _linear(sd, "head", p["head"])
     return sd
 
 

@@ -16,8 +16,9 @@ import torch
 from torch import nn
 
 from fer_vit_tpu_torch.core.dtypes import compute_dtype
+from fer_vit_tpu_torch.nn.initializers import reset_linear_
 from fer_vit_tpu_torch.nn.transformer import (TransformerEncoder, layer_norm,
-                                              linear, reset_linear_)
+                                              linear)
 
 
 class LatentViT(nn.Module):

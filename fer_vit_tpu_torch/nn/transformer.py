@@ -11,6 +11,12 @@ Parameters carry torch's names (``self_attn.in_proj_weight``,
 JAX package's: every matmul and bias add runs in the compute dtype (the
 dtype of the input), LayerNorm (eps 1e-5) in f32. ``torch.nn``'s own layer
 is not used: its eval fast path has numerics of its own.
+
+Attention follows the JAX layer's dispatch rule: without active dropout and
+from 128 tokens on it goes through the fused kernel
+(:func:`fer_vit_tpu_torch.ops.flash_attention.fused_attention`, which takes
+its plain version for CPU tensors), otherwise through the plain
+``dot_product_attention``.
 """
 
 from __future__ import annotations
@@ -23,7 +29,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fer_vit_tpu_torch.nn.initializers import (reset_linear_, uniform_,
+                                               vit_linear_init_)
 from fer_vit_tpu_torch.ops.attention import dot_product_attention
+from fer_vit_tpu_torch.ops.flash_attention import fused_attention
+
+# The JAX layer's threshold (fer_vit_tpu/nn/transformer.py): from this
+# sequence length on, attention without dropout takes the fused kernel.
+FUSED_MIN_LEN = 128
 
 
 def linear(x: torch.Tensor, m: nn.Linear) -> torch.Tensor:
@@ -35,20 +48,6 @@ def linear(x: torch.Tensor, m: nn.Linear) -> torch.Tensor:
 def layer_norm(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), m.normalized_shape, m.weight.float(),
                         m.bias.float(), m.eps).to(x.dtype)
-
-
-def _uniform_(t: torch.Tensor, bound: float,
-              generator: Optional[torch.Generator]) -> None:
-    with torch.no_grad():
-        t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
-
-
-def reset_linear_(m: nn.Linear, generator: Optional[torch.Generator]) -> None:
-    """torch's nn.Linear init (U(+-1/sqrt(fan_in)) for weight and bias),
-    drawn from ``generator``."""
-    bound = 1.0 / math.sqrt(m.in_features)
-    _uniform_(m.weight, bound, generator)
-    _uniform_(m.bias, bound, generator)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -66,8 +65,8 @@ class MultiheadSelfAttention(nn.Module):
                                                        embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = nn.Linear(embed_dim, embed_dim)
-        _uniform_(self.in_proj_weight, math.sqrt(6.0 / (4 * embed_dim)),
-                  generator)
+        uniform_(self.in_proj_weight, math.sqrt(6.0 / (4 * embed_dim)),
+                 generator)
         reset_linear_(self.out_proj, generator)
         with torch.no_grad():
             self.out_proj.bias.zero_()
@@ -78,8 +77,12 @@ class MultiheadSelfAttention(nn.Module):
         qkv = x @ self.in_proj_weight.t().to(dt) + self.in_proj_bias.to(dt)
         q, k, v = (t.reshape(b, length, self.num_heads, -1).transpose(1, 2)
                    for t in qkv.chunk(3, dim=-1))
-        out = dot_product_attention(q, k, v, dropout_p=self.dropout,
-                                    training=self.training)
+        if length >= FUSED_MIN_LEN and not (self.dropout > 0.0
+                                            and self.training):
+            out = fused_attention(q, k, v)
+        else:
+            out = dot_product_attention(q, k, v, dropout_p=self.dropout,
+                                        training=self.training)
         return linear(out.transpose(1, 2).reshape(b, length, d),
                       self.out_proj)
 
@@ -121,18 +124,27 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """``depth`` layers. Like ``torch.nn.TransformerEncoder``, the layers are
-    deep copies of one, so all start identical."""
+    deep copies of one, so all start identical. ``vit_linear_init`` then
+    re-draws every nn.Linear of every layer (``linear1``, ``linear2``,
+    ``self_attn.out_proj``) independently, trunc_normal(0.02) with zero
+    biases, as the reference ImageViT's ``_init_weights`` does: only
+    ``in_proj_weight`` stays identical across layers."""
 
     def __init__(self, depth: int, embed_dim: int, num_heads: int,
                  mlp_dim: int, dropout: float = 0.1,
                  activation: str = "relu", norm_first: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 vit_linear_init: bool = False):
         super().__init__()
         layer = TransformerEncoderLayer(embed_dim, num_heads, mlp_dim,
                                         dropout, activation, norm_first,
                                         generator)
         self.layers = nn.ModuleList(copy.deepcopy(layer)
                                     for _ in range(depth))
+        if vit_linear_init:
+            for lay in self.layers:
+                for m in (lay.linear1, lay.linear2, lay.self_attn.out_proj):
+                    vit_linear_init_(m, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:

@@ -7,8 +7,10 @@ f32 whatever the input dtype (the products of bf16 operands are exact in
 f32); the weights are cast back to the input dtype before the product with V,
 which accumulates in f32; the result is in the input dtype.
 
-LatentViT attends over 19 tokens, where a kernel buys nothing; the JAX
-package's fused attention kernel (L >= 128, ImageViT) is ported with ImageViT.
+This is the path for short sequences (LatentViT's 19 tokens) and for
+attention with dropout; from 128 tokens on, without dropout, the transformer
+layer calls the fused kernel of :mod:`fer_vit_tpu_torch.ops.flash_attention`,
+whose plain version is this function.
 """
 
 from __future__ import annotations

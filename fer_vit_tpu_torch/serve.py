@@ -1,8 +1,9 @@
-"""Batch inference: images -> (labels, probs), latent route.
+"""Batch inference: images -> (labels, probs).
 
-Port of ``fer_vit_tpu/serve.py``'s ``Predictor`` for latent classifiers:
-preprocess -> pSp encode -> classify -> softmax and argmax, at one fixed batch
-size. Requests of any length are cut into chunks padded to ``batch_size``,
+Port of ``fer_vit_tpu/serve.py``'s ``Predictor``, with its two routes: the
+latent route (preprocess -> pSp encode -> classify, for classifiers over w+
+codes) and the image route (ImageNet normalisation -> ImageViT); both end in
+an f32 softmax and argmax, at one fixed batch size. Requests of any length are cut into chunks padded to ``batch_size``,
 and up to ``pipeline_depth`` chunks are in flight: CUDA work is queued
 without waiting, and fetching an older chunk's results to the host is the
 only wait. The answers do not depend on the depth.
@@ -18,50 +19,59 @@ import torch
 
 from fer_vit_tpu_torch import NUM_CLASSES
 from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
-from fer_vit_tpu_torch.encoders.psp import preprocess_images
+from fer_vit_tpu_torch.data.image_pipeline import normalize_images
+from fer_vit_tpu_torch.encoders.psp import preprocess_images, to_unit_floats
 
 
 class Predictor:
-    """End-to-end FER inference for a latent classifier.
+    """End-to-end FER inference.
 
-    ``model`` is a classifier over w+ codes with its weights loaded (e.g.
-    :class:`fer_vit_tpu_torch.models.LatentViT`); ``psp`` an
+    ``model`` is a classifier with its weights loaded. Over w+ codes (e.g.
+    :class:`fer_vit_tpu_torch.models.LatentViT`) it needs ``psp``, an
     :class:`fer_vit_tpu_torch.encoders.psp.EncoderWrapper` on the same
-    ``device`` (default CUDA; ``device="cpu"`` for the CPU)."""
+    ``device``. With ``image_route=True`` the model takes images (e.g.
+    :class:`fer_vit_tpu_torch.models.ImageViT`), needs no encoder, and
+    ``input_size`` defaults to the model's ``img_size``. ``device`` defaults
+    to CUDA; ``device="cpu"`` for the CPU."""
 
     def __init__(self, model: torch.nn.Module, *, psp=None,
-                 batch_size: int = 64, input_size: Optional[int] = None,
+                 batch_size: int = 64, image_route: bool = False,
+                 input_size: Optional[int] = None,
                  pipeline_depth: int = 2, device: DeviceLike = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
-        if psp is None:
-            raise ValueError("latent classifiers need a pSp encoder: pass "
-                             "psp=EncoderWrapper(...)")
-        enc = psp.encoder
-        if input_size is not None and int(input_size) != enc.input_size:
-            # preprocess always resizes to the encoder's size; a different
-            # input_size would mean a silent double resample
-            raise ValueError(
-                f"latent route: input_size ({input_size}) must equal the pSp "
-                f"encoder's input size ({enc.input_size})")
+        self.image_route = bool(image_route)
+        if self.image_route:
+            size = int(input_size or getattr(model, "img_size", 224))
+        else:
+            if psp is None:
+                raise ValueError("latent classifiers need a pSp encoder: "
+                                 "pass psp=EncoderWrapper(...)")
+            size = psp.encoder.input_size
+            if input_size is not None and int(input_size) != size:
+                # preprocess always resizes to the encoder's size; a
+                # different input_size would mean a silent double resample
+                raise ValueError(
+                    f"latent route: input_size ({input_size}) must equal "
+                    f"the pSp encoder's input size ({size})")
         self.device = resolve_device(device)
-        if psp.device != self.device:
+        if psp is not None and psp.device != self.device:
             raise ValueError(f"psp is on {psp.device}, the predictor on "
                              f"{self.device}")
         self.model = model.to(self.device).eval().requires_grad_(False)
-        self.psp = psp
+        self.psp = None if self.image_route else psp
         self._model_name = type(model).__name__
         self.batch_size = int(batch_size)
         self.pipeline_depth = int(pipeline_depth)
         self.num_classes = int(getattr(model, "num_classes", NUM_CLASSES))
-        self.input_size = enc.input_size
+        self.input_size = size
 
     def describe(self) -> dict:
         return {
-            "route": "latent",
+            "route": "image" if self.image_route else "latent",
             "model": self._model_name,
             "batch_size": self.batch_size,
             "input_size": self.input_size,
@@ -71,8 +81,13 @@ class Predictor:
 
     def _forward(self, images: torch.Tensor):
         with torch.inference_mode():
-            x = preprocess_images(images, size=self.input_size)
-            logits = self.model(self.psp.encoder(x))
+            if self.image_route:
+                logits = self.model(normalize_images(
+                    to_unit_floats(images), out_size=self.input_size,
+                    already_01=True))
+            else:
+                x = preprocess_images(images, size=self.input_size)
+                logits = self.model(self.psp.encoder(x))
             probs = torch.softmax(logits.float(), dim=-1)
             return torch.argmax(logits, dim=-1), probs
 

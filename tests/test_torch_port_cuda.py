@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card: each against its plain version at
-the IR-SE50 unit shapes, determinism, the launch count and the wrapper's
-device-side checks. Marked ``cuda``; they skip without a CUDA device. This
+"""The port's CUDA kernels on the card: the fused IR-SE unit against its
+plain version at the IR-SE50 unit shapes, the fused attention at the image
+slice's shape and the edge cases of ``chip_smoke.py``, in f32 and bf16;
+determinism, the launch counts and the wrappers' device-side checks. Marked ``cuda``; they skip without a CUDA device. This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed::
 
@@ -13,6 +14,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
+                                                   fused_attention_plain)
 from fer_vit_tpu_torch.ops.fused_irse_unit import (fused_irse_residual,
                                                    fused_irse_residual_plain)
 
@@ -73,3 +76,54 @@ def test_wrapper_checks_cuda_inputs(smoke):
     with pytest.raises(ValueError, match="divisible by 8"):
         fused_irse_residual(x[..., :6].contiguous(), a1[:6], b1[:6],
                             w1[:, :, :6], alpha, w2, b2)
+
+
+# the image slice's shape (B, H, L, Dh), then chip_smoke.ATTN_EDGE
+ATTN_CASES = [(64, 12, 197, 64), (2, 3, 1, 64), (2, 3, 37, 64),
+              (2, 3, 128, 64), (2, 3, 129, 64), (2, 3, 257, 64),
+              (2, 3, 197, 32), (2, 3, 197, 48), (2, 3, 197, 36),
+              (1, 1, 197, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ATTN_CASES)
+def test_attention_kernel_matches_plain(smoke, shape, dtype):
+    """Contiguous inputs and, at the main shape, the head-split views of a
+    packed qkv tensor that the transformer layer passes."""
+    dt = getattr(torch, dtype)
+    for packed in ((False, True) if shape[0] == 64 else (False,)):
+        q, k, v = smoke.attention_inputs(torch, *shape, 3, "cuda", dt, packed)
+        got = fused_attention(q, k, v)
+        ref = fused_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        assert got.dtype == dt and got.shape == q.shape
+        res = smoke.compare_attention(torch, got, ref, dt)
+        assert res["ok"], (packed, res)
+
+
+def test_attention_kernel_is_deterministic_and_counted(smoke):
+    q, k, v = smoke.attention_inputs(torch, 4, 12, 197, 64, 1, "cuda",
+                                     torch.bfloat16, packed=True)
+    fused_attention.launches = 0
+    a = fused_attention(q, k, v)
+    b = fused_attention(q, k, v)
+    fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == 2
+    assert torch.equal(a, b)
+
+
+def test_attention_wrapper_checks_cuda_inputs(smoke):
+    q, k, v = smoke.attention_inputs(torch, 1, 2, 16, 8, 2, "cuda",
+                                     torch.float32)
+    with pytest.raises(ValueError, match="Dh <= 128"):
+        big = torch.zeros(1, 2, 16, 136, device="cuda")
+        fused_attention(big, big, big)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fused_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="is on"):
+        fused_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="contiguous in Dh"):
+        fused_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fused_attention(*(t.to("meta") for t in (q, k, v)))

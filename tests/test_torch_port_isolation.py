@@ -31,8 +31,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
-    assert "fer_vit_tpu_torch.ops.fused_irse_unit" in mods
-    assert "fer_vit_tpu_torch.serve" in mods
+    for m in ("ops.fused_irse_unit", "ops.flash_attention", "serve",
+              "models.image_vit", "data.image_pipeline", "nn.initializers"):
+        assert f"fer_vit_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -72,11 +73,16 @@ def test_sources_import_no_jax_and_no_jax_package():
 def test_entry_points_need_cuda_unless_asked_for_cpu():
     from fer_vit_tpu_torch.core.dtypes import compute_dtype, resolve_device
     from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.models import ImageViT
+    from fer_vit_tpu_torch.serve import Predictor
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EncoderWrapper()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(ImageViT(img_size=32, patch_size=8, embed_dim=16, depth=1,
+                           heads=2, mlp_dim=32), image_route=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
@@ -118,6 +124,21 @@ def test_chip_smoke_weight_trees_have_the_jax_layout():
     assert _shapes(got) == _shapes(want)
     assert len(smoke.IRSE50_UNIT_SHAPES) == 8
     assert sum(s[-1] for s in smoke.IRSE50_UNIT_SHAPES) == 24
+
+
+def test_chip_smoke_image_vit_tree_has_the_jax_layout():
+    from fer_vit_tpu.models.image_vit import ImageViT
+
+    smoke = _chip_smoke()
+    model = ImageViT(img_size=48, patch_size=4, embed_dim=32, depth=2,
+                     heads=2, mlp_dim=64)
+    want = jax.eval_shape(model.init, jax.random.key(0),
+                          jnp.zeros((1, 48, 48, 3)))
+    got = smoke.image_vit_jax_params(img_size=48, patch_size=4, embed_dim=32,
+                                     depth=2, mlp_dim=64)
+    assert _shapes(got) == _shapes(want)
+    # ViT-Base/16 at 224 px: 197 tokens of 12 heads of 64
+    assert smoke.ATTN_MAIN == (smoke.IMAGE_BATCH, 12, 197, 64)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -1,7 +1,9 @@
-"""The port's Predictor (fer_vit_tpu_torch/serve.py), latent route, end to
-end against the JAX package's Predictor on the same bridged weights: a
-ragged uint8 request through pSp (BN folded, fused residual units) and
-LatentViT; depth invariance of the pipelined dispatch; the argument checks."""
+"""The port's Predictor (fer_vit_tpu_torch/serve.py) end to end against the
+JAX package's Predictor on the same bridged weights. Latent route: a ragged
+uint8 request through pSp (BN folded, fused residual units) and LatentViT.
+Image route: ImageNet normalisation (with an antialiased resize) and
+ImageViT. Depth invariance of the pipelined dispatch on both; the argument
+checks."""
 
 import numpy as np
 import pytest
@@ -13,11 +15,13 @@ from fer_vit_tpu.encoders.psp import EncoderWrapper as JaxEncoderWrapper
 from fer_vit_tpu.encoders.psp import PSpEncoder as JaxPSpEncoder
 from fer_vit_tpu.serve import Predictor as JaxPredictor
 from fer_vit_tpu_torch.encoders.psp import EncoderWrapper, PSpEncoder
-from fer_vit_tpu_torch.interop.from_jax import (latent_vit_state_dict_from_jax,
+from fer_vit_tpu_torch.interop.from_jax import (image_vit_state_dict_from_jax,
+                                                latent_vit_state_dict_from_jax,
                                                 psp_state_dict_from_jax)
-from fer_vit_tpu_torch.models import LatentViT
+from fer_vit_tpu_torch.models import ImageViT, LatentViT
 from fer_vit_tpu_torch.serve import Predictor
-from tests.torch_port_common import (TINY_PSP, TINY_VIT,
+from tests.torch_port_common import (TINY_IMAGE_VIT, TINY_PSP, TINY_VIT,
+                                     jax_image_vit_variables,
                                      jax_latent_vit_variables,
                                      jax_psp_variables)
 
@@ -113,3 +117,66 @@ def test_predictor_without_device_needs_cuda(port_parts):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Predictor(model, psp=psp)
+
+
+# -- image route ---------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def image_weights():
+    return jax_image_vit_variables(seed=23)
+
+
+@pytest.fixture(scope="module")
+def port_image_vit(image_weights):
+    _, variables = image_weights
+    model = ImageViT(**TINY_IMAGE_VIT)
+    model.load_state_dict(image_vit_state_dict_from_jax(variables),
+                          strict=True)
+    return model
+
+
+def _faces(n, seed=0, size=56):
+    """uint8 images larger than the model's 48 px: the route resizes them
+    (antialiased) before normalising."""
+    return np.random.default_rng(seed).integers(0, 256, (n, size, size, 3),
+                                                dtype=np.uint8)
+
+
+def test_image_route_matches_jax(image_weights, port_image_vit):
+    """5 images at batch_size 2 through the JAX image route and the port's:
+    the same labels, probs within 1e-4."""
+    jax_model, variables = image_weights
+    jax_pred = JaxPredictor(jax_model, variables, image_route=True,
+                            batch_size=2)
+    pred = Predictor(port_image_vit, image_route=True, batch_size=2,
+                     device="cpu")
+    imgs = _faces(5, seed=3)
+    with jax.default_matmul_precision("highest"):
+        ref_labels, ref_probs = jax_pred.predict(imgs)
+    labels, probs = pred.predict(imgs)
+    assert labels.shape == (5,) and labels.dtype == np.int32
+    assert probs.shape == (5, 7) and probs.dtype == np.float32
+    np.testing.assert_array_equal(labels, ref_labels)
+    np.testing.assert_allclose(probs, ref_probs, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, rtol=1e-5)
+
+
+def test_image_route_depth_invariance_and_describe(port_image_vit):
+    imgs = _faces(7, seed=6)
+    preds = [Predictor(port_image_vit, image_route=True, batch_size=2,
+                       pipeline_depth=d, device="cpu") for d in (1, 3)]
+    outs = [p.predict(imgs) for p in preds]
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    assert preds[0].psp is None
+    assert preds[0].describe() == {"route": "image", "model": "ImageViT",
+                                   "batch_size": 2, "input_size": 48,
+                                   "num_classes": 7, "device": "cpu"}
+
+
+def test_image_route_without_device_needs_cuda(port_image_vit):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor(port_image_vit, image_route=True)

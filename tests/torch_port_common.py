@@ -60,3 +60,19 @@ def jax_latent_vit_variables(seed, **kw):
     shapes = jax.eval_shape(model.init, jax.random.key(0),
                             jnp.zeros((1, model.seq_len, model.latent_dim)))
     return model, random_variables(shapes, seed)
+
+
+# img 48, patch 4: 144 patches + CLS = 145 tokens, past the fused-attention
+# threshold (128), so the port's layers take fused_attention
+TINY_IMAGE_VIT = dict(img_size=48, patch_size=4, embed_dim=32, depth=2,
+                      heads=2, mlp_dim=64, num_classes=7, dropout=0.0)
+
+
+def jax_image_vit_variables(seed, **kw):
+    from fer_vit_tpu.models.image_vit import ImageViT
+
+    model = ImageViT(**{**TINY_IMAGE_VIT, **kw})
+    size = model.img_size
+    shapes = jax.eval_shape(model.init, jax.random.key(0),
+                            jnp.zeros((1, size, size, 3)))
+    return model, random_variables(shapes, seed)
