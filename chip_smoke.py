@@ -12,9 +12,14 @@ Phases, in order; any failure exits non-zero before the result line:
    shapes the main path gives it, in f32 and bf16, plus edge cases and a
    gradient check; then the kernel's time, the plain version's, a yardstick's
    (cuDNN for the fused IR-SE unit, ``scaled_dot_product_attention`` for the
-   fused attention) and the bound, all with CUDA events. The fused IR-SE
-   unit (K1) first, then the fused attention (K2), which must also give
-   bit-identical results on two launches.
+   fused attention) and the bound, all with CUDA events (the attention's
+   around CUDA-graph replays, so that its short calls are timed by the
+   card, not by the host that launches them). The fused IR-SE
+   unit (K1) first, then the fused attention (K2): both of its kernels, the
+   TMA/wgmma one (``flash_attention_sm90``, bf16 up to L = 256) and the
+   streaming one (``flash_attention``, the rest), each case logged with the
+   kernel the wrapper's route picked; each must also give bit-identical
+   results on two launches, and the two are timed in turns.
 3. latent slice: ``EncoderWrapper`` (pSp over IR-SE50, 256 px, BN folded,
    fused residual units, bf16) feeds ``LatentViT`` (depth 6, 512 wide)
    behind ``Predictor``.
@@ -82,10 +87,11 @@ EDGE_CASES = (
 # batch 64 -> (B, heads, tokens, head dim).
 IMAGE_BATCH = 64
 ATTN_MAIN = (IMAGE_BATCH, 12, 197, 64)
-# Edge cases (B, H, L, Dh): one token; L ragged against the 64-row tiles
-# and key chunks (37, 129, 257); L at the dispatch threshold (128); head
-# dims below 64 (32, 48) and one that is not a multiple of 8 (36: scalar
-# staging and zero fill up to 48); a single (batch, head).
+# Edge cases (B, H, L, Dh), contiguous: one token; L ragged against the
+# 64-row tiles and key chunks (37, 129, 257); L at the dispatch threshold
+# (128); head dims below 64 (32, 48) and one that is not a multiple of 8
+# (36: the streaming kernel's scalar staging and zero fill up to 48); a
+# single (batch, head).
 ATTN_EDGE = (
     (2, 3, 1, 64),
     (2, 3, 37, 64),
@@ -97,6 +103,24 @@ ATTN_EDGE = (
     (2, 3, 197, 36),
     (1, 1, 197, 64),
 )
+# The TMA kernel's boundaries, from packed qkv views: L = 200 (a whole
+# number of 8-key groups), 256 (its largest L, four full key chunks), 257
+# (the streaming kernel's); Dh = 32 and 48 (TMA boxes wider than the head,
+# zero filled; 64- and 96-byte head strides).
+ATTN_BOUNDARY = (
+    (2, 3, 200, 64),
+    (2, 3, 256, 64),
+    (2, 3, 257, 64),
+    (2, 3, 197, 32),
+    (2, 3, 197, 48),
+)
+# Scores spread wide: q times 16 (exact in bf16) at the main path's L and
+# Dh, so that rows hold weights below 2^-99 and exact zeros, which take the
+# TMA kernel's exact path for tiny quotients; bf16 only (in f32 the
+# streaming kernel's 3xTF32 scores, off by about 2^-22 |s|, are not within
+# ATTN_F32_ATOL of the plain version's at scores of a few hundred).
+ATTN_WIDE = ((2, 3, 197, 64),)
+ATTN_WIDE_Q_SCALE = 16.0
 # Kernel vs plain in f32: both take f32 scores and softmax; the kernel's
 # 3xTF32 products keep about 2^-22 of each term and its row sums are taken
 # chunk by chunk with a rescale, the plain version's by cuBLAS and torch's
@@ -143,7 +167,8 @@ def phase_device(torch) -> dict:
     for name, info in sorted(_build.build_logs.items()):
         log(f"build {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
-            if any(w in line for w in ("Compiling entry", "Used", "spill")):
+            if any(w in line for w in ("Compiling entry", "Used", "spill",
+                                       "wgmma", "arning")):
                 log(f"  {line.strip()}")
     return {"card": card, "kind": kind}
 
@@ -225,6 +250,34 @@ def time_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_graph_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed ``reps`` times between two events. A call shorter than
+    its Python wrapper's overhead (about 0.05 ms) is timed by the card, not
+    by the host that launches it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def unit_bound_ms(B, H, W, cin, cout, stride, itemsize=2):
@@ -346,12 +399,15 @@ def phase_kernels(torch) -> dict:
         timed=f"per forward, 24 units at batch {SLICE_BATCH}")}
 
 
-def attention_inputs(torch, B, H, L, dh, seed, device, dtype, packed=False):
-    """q, k, v (B, H, L, Dh), N(0, 1). ``packed``: head-split views of one
-    (B, L, 3 H Dh) tensor, as a transformer layer hands them over."""
+def attention_inputs(torch, B, H, L, dh, seed, device, dtype, packed=False,
+                     q_scale=1.0):
+    """q, k, v (B, H, L, Dh), N(0, 1), q times ``q_scale``. ``packed``:
+    head-split views of one (B, L, 3 H Dh) tensor, as a transformer layer
+    hands them over."""
     rng = np.random.default_rng(seed)
-    qkv = torch.from_numpy(rng.normal(size=(B, L, 3 * H * dh)).astype(
-        np.float32)).to(device=device, dtype=dtype)
+    qkv = rng.normal(size=(B, L, 3 * H * dh)).astype(np.float32)
+    qkv[..., :H * dh] *= q_scale
+    qkv = torch.from_numpy(qkv).to(device=device, dtype=dtype)
     views = [t.reshape(B, L, H, dh).transpose(1, 2)
              for t in qkv.chunk(3, dim=-1)]
     return views if packed else [t.contiguous() for t in views]
@@ -394,30 +450,49 @@ def attention_bound_ms(B, H, L, dh, itemsize=2):
 def phase_attention(torch) -> dict:
     import torch.nn.functional as F
 
-    from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
-                                                       fused_attention_plain)
+    from fer_vit_tpu_torch.ops.flash_attention import (
+        KERNELS, SM90, STREAMING, attention_streaming, fused_attention,
+        fused_attention_plain, route)
 
     dev = torch.device("cuda")
     failures = []
-    max_err_bf16 = 0.0
-    cases = [(ATTN_MAIN, True)] + [(c, False) for c in ATTN_EDGE]
+    max_err_bf16 = {}
+    cases = ([(ATTN_MAIN, True, 1.0)] + [(c, False, 1.0) for c in ATTN_EDGE]
+             + [(c, True, 1.0) for c in ATTN_BOUNDARY]
+             + [(c, True, ATTN_WIDE_Q_SCALE) for c in ATTN_WIDE])
     for dtype in (torch.float32, torch.bfloat16):
-        for i, ((B, H, L, dh), packed) in enumerate(cases):
+        for i, ((B, H, L, dh), packed, q_scale) in enumerate(cases):
+            if q_scale != 1.0 and dtype == torch.float32:
+                continue  # only bf16 takes the TMA kernel's tiny path
             q, k, v = attention_inputs(torch, B, H, L, dh, 300 + i, dev,
-                                       dtype, packed)
-            got = fused_attention(q, k, v)
-            torch.cuda.synchronize()
+                                       dtype, packed, q_scale)
             ref = fused_attention_plain(q, k, v)
-            torch.cuda.synchronize()
-            c = compare_attention(torch, got, ref, dtype)
-            log(f"check flash_attention {str(dtype)[6:]} "
-                f"{(B, H, L, dh)}{' packed qkv' if packed else ''}: err "
-                f"{c['err']:.3e} (max|out| {c['scale']:.3f}, beyond 1 ulp "
-                f"{c['beyond_ulp']:.2e}) {'ok' if c['ok'] else 'FAIL'}")
-            if not c["ok"]:
-                failures.append(f"{dtype} {(B, H, L, dh)}")
-            if dtype == torch.bfloat16 and packed:
-                max_err_bf16 = c["err"]
+            if q_scale != 1.0 and dtype == torch.bfloat16:
+                w = torch.softmax(q.float() @ k.float().transpose(-1, -2)
+                                  * dh ** -0.5, dim=-1)
+                log(f"check {(B, H, L, dh)} q x{q_scale:g}: "
+                    f"{int(((w > 0) & (w < 2.0 ** -99)).sum())} weights in "
+                    f"(0, 2^-99), {int((w == 0).sum())} zero")
+            chosen = route(q, k, v)
+            # the routed call, and the streaming kernel also where the TMA
+            # kernel took the case
+            runs = [(chosen, lambda: fused_attention(q, k, v))]
+            if chosen == SM90:
+                runs.append((STREAMING, lambda: attention_streaming(q, k, v)))
+            for name, fn in runs:
+                got = fn()
+                torch.cuda.synchronize()
+                c = compare_attention(torch, got, ref, dtype)
+                log(f"check {name} {str(dtype)[6:]} {(B, H, L, dh)}"
+                    f"{' packed qkv' if packed else ''}"
+                    f"{f' q x{q_scale:g}' if q_scale != 1.0 else ''}"
+                    f"{' (routed)' if name == chosen else ''}: err "
+                    f"{c['err']:.3e} (max|out| {c['scale']:.3f}, beyond 1 "
+                    f"ulp {c['beyond_ulp']:.2e}) {'ok' if c['ok'] else 'FAIL'}")
+                if not c["ok"]:
+                    failures.append(f"{name} {dtype} {(B, H, L, dh)}")
+                if dtype == torch.bfloat16 and i == 0:
+                    max_err_bf16[name] = c["err"]
 
     # gradient through the autograd Function (kernel forward, plain
     # backward) vs autograd through the plain version
@@ -432,34 +507,55 @@ def phase_attention(torch) -> dict:
     if gerr > 1e-4:
         failures.append(f"gradient error {gerr}")
 
-    # two launches on the same inputs give the same bits
+    # two launches on the same inputs give the same bits, in each kernel
     q, k, v = attention_inputs(torch, *ATTN_MAIN, 9, dev, torch.bfloat16,
                                packed=True)
-    same = torch.equal(fused_attention(q, k, v), fused_attention(q, k, v))
-    log(f"check flash_attention bf16 {ATTN_MAIN}: two launches "
-        f"{'bit-identical' if same else 'DIFFER'}")
-    if not same:
-        failures.append("two launches differ")
+    check(route(q, k, v) == SM90, f"{ATTN_MAIN} routes to {route(q, k, v)}")
+    for name, fn in KERNELS.items():
+        same = torch.equal(fn(q, k, v), fn(q, k, v))
+        log(f"check {name} bf16 {ATTN_MAIN}: two launches "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{name}: two launches differ")
     check(not failures, f"flash_attention disagrees with its plain version: "
           f"{failures}")
 
-    # times at the main path's shape and layout, bf16
-    t_k = time_ms(torch, lambda: fused_attention(q, k, v))
-    t_p = time_ms(torch, lambda: fused_attention_plain(q, k, v))
-    t_l = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v))
+    # device times at the main path's shape and layout, bf16, in turns: the
+    # TMA kernel, the streaming kernel twice, the TMA kernel; then the plain
+    # version and scaled_dot_product_attention; all from CUDA graphs. Then
+    # the wrapper as the layer calls it, timed from the host, which shows
+    # what its Python costs per call.
+    turns = {SM90: [], STREAMING: []}
+    for name in (SM90, STREAMING, STREAMING, SM90):
+        turns[name].append(time_graph_ms(torch,
+                                         lambda: KERNELS[name](q, k, v)))
+    t_p = time_graph_ms(torch, lambda: fused_attention_plain(q, k, v))
+    t_l = time_graph_ms(torch,
+                        lambda: F.scaled_dot_product_attention(q, k, v))
+    t_host = time_ms(torch, lambda: fused_attention(q, k, v), reps=50)
+    log(f"time fused_attention bf16 {ATTN_MAIN}, host-timed per call "
+        f"(wrapper and launch): {t_host:.4f} ms")
     ops_ms, bytes_ms = attention_bound_ms(*ATTN_MAIN)
     bound = max(ops_ms, bytes_ms)
-    log(f"time flash_attention bf16 {ATTN_MAIN} packed qkv, per call: "
-        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"scaled_dot_product_attention {t_l:.4f} ms, bound {bound:.4f} ms "
-        f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f}; "
-        f"{t_k / bound:.1f}x bound); per forward (12 calls): kernel "
-        f"{12 * t_k:.4f} ms, bound {12 * bound:.4f} ms")
-    return {"flash_attention": {
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
-        "ops_ms": ops_ms, "bytes_ms": bytes_ms, "max_abs_err": max_err_bf16,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "timed": f"per call at {ATTN_MAIN}"}}
+    out = {}
+    for name, ts in turns.items():
+        t_k = sum(ts) / len(ts)
+        log(f"time {name} bf16 {ATTN_MAIN} packed qkv, per call: kernel "
+            f"{' / '.join(f'{t:.4f}' for t in ts)} ms (mean {t_k:.4f}), "
+            f"plain {t_p:.4f} ms, scaled_dot_product_attention {t_l:.4f} "
+            f"ms, bound {bound:.4f} ms (operations {ops_ms:.4f}, bytes "
+            f"{bytes_ms:.4f}); {t_k / bound:.2f}x bound ({100 * bound / t_k:.1f}"
+            f" % of it), {t_k / t_l:.2f}x scaled_dot_product_attention; per "
+            f"forward (12 calls): kernel {12 * t_k:.4f} ms, bound "
+            f"{12 * bound:.4f} ms")
+        out[name] = {
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l, "bound_ms": bound,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "max_abs_err": max_err_bf16[name],
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "timed": f"device time per call at {ATTN_MAIN} (CUDA graph), "
+                     f"mean of {len(ts)} turns"}
+    return out
 
 
 # -- main ---------------------------------------------------------------------
@@ -486,8 +582,9 @@ def main() -> int:
     # each kernel's launches on the path that runs it
     launches = {"fused_irse_unit": phase_slice(torch, dev_info)[
         "fused_irse_unit"]}
-    launches["flash_attention"] = phase_image_slice(torch, dev_info)[
-        "flash_attention"]
+    image = phase_image_slice(torch, dev_info)
+    for name in ("flash_attention_sm90", "flash_attention"):
+        launches[name] = image[name]
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
@@ -501,6 +598,11 @@ KERNEL_META = {
         "route": "cuda",
         "source": "fer_vit_tpu_torch/csrc/fused_irse_unit.cu",
         "replaces": "fer_vit_tpu/ops/fused_irse_unit.py:86",
+    },
+    "flash_attention_sm90": {
+        "route": "cuda",
+        "source": "fer_vit_tpu_torch/csrc/flash_attention_sm90.cu",
+        "replaces": "fer_vit_tpu/ops/flash_attention.py:35",
     },
     "flash_attention": {
         "route": "cuda",
@@ -664,7 +766,8 @@ def build_slice(torch, device, dtype, psp_sd, vit_sd, batch_size):
 def phase_slice(torch, dev_info) -> dict:
     from fer_vit_tpu_torch.interop.from_jax import (
         latent_vit_state_dict_from_jax, psp_state_dict_from_jax)
-    from fer_vit_tpu_torch.ops.flash_attention import fused_attention
+    from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
+                                                       reset_launch_counts)
     from fer_vit_tpu_torch.ops.fused_irse_unit import fused_irse_residual
 
     psp_sd = psp_state_dict_from_jax(psp_jax_variables())
@@ -678,22 +781,23 @@ def phase_slice(torch, dev_info) -> dict:
                 for n in REQUEST_SIZES]
 
     # the main path: three requests through the Predictor's entry point
-    fused_irse_residual.launches = fused_attention.launches = 0
+    fused_irse_residual.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     outs = [pred.predict(r) for r in requests]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"fused_irse_unit": fused_irse_residual.launches,
-                "flash_attention": fused_attention.launches}
+                **fused_attention.kernel_launches}
     n_batches = sum(-(-n // SLICE_BATCH) for n in REQUEST_SIZES)
     log(f"slice: {len(requests)} requests of {list(REQUEST_SIZES)} images, "
         f"{n_batches} batches of {SLICE_BATCH}, launches {launches}, "
         f"{elapsed:.3f} s")
     # LatentViT attends over 19 tokens: below the fused kernel's threshold
     check(launches == {"fused_irse_unit": 24 * n_batches,
-                       "flash_attention": 0},
+                       "flash_attention_sm90": 0, "flash_attention": 0},
           f"latent slice launches {launches}, expected "
-          f"{24 * n_batches} fused_irse_unit and 0 flash_attention")
+          f"{24 * n_batches} fused_irse_unit and no attention kernel")
     for n, (labels, probs) in zip(REQUEST_SIZES, outs):
         check(labels.shape == (n,) and probs.shape == (n, 7),
               f"shapes {labels.shape} {probs.shape} for {n} images")
@@ -847,7 +951,8 @@ def phase_image_slice(torch, dev_info) -> dict:
     from fer_vit_tpu_torch.interop.from_jax import (
         image_vit_state_dict_from_jax)
     from fer_vit_tpu_torch.nn.transformer import layer_norm, linear
-    from fer_vit_tpu_torch.ops.flash_attention import fused_attention
+    from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
+                                                       reset_launch_counts)
     from fer_vit_tpu_torch.ops.fused_irse_unit import fused_irse_residual
 
     sd = image_vit_state_dict_from_jax(image_vit_jax_params())
@@ -861,21 +966,26 @@ def phase_image_slice(torch, dev_info) -> dict:
                              dtype=np.uint8) for n in IMAGE_REQUEST_SIZES]
 
     # the main path: three requests through the Predictor's entry point
-    fused_irse_residual.launches = fused_attention.launches = 0
+    fused_irse_residual.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     outs = [pred.predict(r) for r in requests]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = {"fused_irse_unit": fused_irse_residual.launches,
-                "flash_attention": fused_attention.launches}
+                **fused_attention.kernel_launches}
     n_batches = sum(-(-n // IMAGE_BATCH) for n in IMAGE_REQUEST_SIZES)
     log(f"image slice: {len(requests)} requests of "
         f"{list(IMAGE_REQUEST_SIZES)} images, {n_batches} batches of "
         f"{IMAGE_BATCH}, launches {launches}, {elapsed:.3f} s")
+    # bf16 ViT-Base attention (L = 197, Dh = 64, packed views) takes the
+    # TMA kernel; the streaming kernel serves the f32 run below
     check(launches == {"fused_irse_unit": 0,
-                       "flash_attention": 12 * n_batches},
+                       "flash_attention_sm90": 12 * n_batches,
+                       "flash_attention": 0},
           f"image slice launches {launches}, expected "
-          f"{12 * n_batches} flash_attention and 0 fused_irse_unit")
+          f"{12 * n_batches} flash_attention_sm90, 0 flash_attention and 0 "
+          f"fused_irse_unit")
     for n, (labels, probs) in zip(IMAGE_REQUEST_SIZES, outs):
         check(labels.shape == (n,) and probs.shape == (n, 7),
               f"shapes {labels.shape} {probs.shape} for {n} images")

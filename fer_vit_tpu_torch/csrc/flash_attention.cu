@@ -1,8 +1,12 @@
 // Fused attention for Hopper (sm_90a): out = softmax(Q K^T / sqrt(Dh)) V.
 //
-// Replaces the TPU kernel fer_vit_tpu/ops/flash_attention.py::_attn_kernel.
-// Over (B, H, L, Dh) tensors of type T (bf16 on the main path, f32 for tight
-// checks), with the TPU kernel's rounding points:
+// Replaces the TPU kernel fer_vit_tpu/ops/flash_attention.py::_attn_kernel
+// where the Hopper kernel of flash_attention_sm90.cu does not apply: this is
+// the streaming kernel for f32 (the 3xTF32 check path), L > 256, Dh above 64
+// or not a multiple of 16 (up to 128), and views whose addresses or strides
+// TMA cannot take; the wrapper (ops/flash_attention.py::route) chooses
+// before the launch. Over (B, H, L, Dh) tensors of type T (f32 or bf16),
+// with the TPU kernel's rounding points:
 //
 //   s   = (q . k in f32, from operands in T) * scale      scale = 1/sqrt(Dh)
 //   m   = max over keys of s;  e = exp(s - m)
@@ -41,6 +45,8 @@
 // head re-reads K and V (from L2), the scores are computed twice, ragged L
 // pads the last key chunk (197 keys take 256), and mma.sync with plain
 // shared-memory staging stands where wgmma with TMA would overlap the loads.
+// flash_attention_sm90.cu does those things for the bf16 main path; this
+// kernel keeps the general one.
 
 #include <math.h>
 #include <stddef.h>

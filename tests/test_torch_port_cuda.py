@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: the fused IR-SE unit against its
-plain version at the IR-SE50 unit shapes, the fused attention at the image
-slice's shape and the edge cases of ``chip_smoke.py``, in f32 and bf16;
-determinism, the launch counts and the wrappers' device-side checks. Marked ``cuda``; they skip without a CUDA device. This
+plain version at the IR-SE50 unit shapes, the fused attention's two kernels
+at the image slice's shape and the edge and boundary cases of
+``chip_smoke.py``, in f32 and bf16; which kernel each shape takes,
+determinism, the launch counts and the wrappers' device-side checks. Marked
+``cuda``; they skip without a CUDA device. This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed::
 
@@ -14,8 +16,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
-                                                   fused_attention_plain)
+from fer_vit_tpu_torch.ops.flash_attention import (
+    SM90, STREAMING, attention_sm90, attention_streaming, fused_attention,
+    fused_attention_plain, reset_launch_counts, route)
 from fer_vit_tpu_torch.ops.fused_irse_unit import (fused_irse_residual,
                                                    fused_irse_residual_plain)
 
@@ -78,39 +81,88 @@ def test_wrapper_checks_cuda_inputs(smoke):
                             w1[:, :, :6], alpha, w2, b2)
 
 
-# the image slice's shape (B, H, L, Dh), then chip_smoke.ATTN_EDGE
+# the image slice's shape (B, H, L, Dh), chip_smoke.ATTN_EDGE, then the TMA
+# kernel's boundaries (chip_smoke.ATTN_BOUNDARY: L = 200 and 256; 257 is in
+# the edge cases)
 ATTN_CASES = [(64, 12, 197, 64), (2, 3, 1, 64), (2, 3, 37, 64),
               (2, 3, 128, 64), (2, 3, 129, 64), (2, 3, 257, 64),
               (2, 3, 197, 32), (2, 3, 197, 48), (2, 3, 197, 36),
-              (1, 1, 197, 64)]
+              (1, 1, 197, 64), (2, 3, 200, 64), (2, 3, 256, 64)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", ATTN_CASES)
 def test_attention_kernel_matches_plain(smoke, shape, dtype):
-    """Contiguous inputs and, at the main shape, the head-split views of a
-    packed qkv tensor that the transformer layer passes."""
+    """Contiguous inputs and the head-split views of a packed qkv tensor
+    that the transformer layer passes, through the kernel the route picks
+    and, where that is the TMA kernel, through the streaming kernel too."""
     dt = getattr(torch, dtype)
-    for packed in ((False, True) if shape[0] == 64 else (False,)):
+    for packed in (False, True):
         q, k, v = smoke.attention_inputs(torch, *shape, 3, "cuda", dt, packed)
-        got = fused_attention(q, k, v)
         ref = fused_attention_plain(q, k, v)
+        runs = [fused_attention(q, k, v)]
+        if route(q, k, v) == SM90:
+            runs.append(attention_streaming(q, k, v))
         torch.cuda.synchronize()
-        assert got.dtype == dt and got.shape == q.shape
-        res = smoke.compare_attention(torch, got, ref, dt)
-        assert res["ok"], (packed, res)
+        for got in runs:
+            assert got.dtype == dt and got.shape == q.shape
+            res = smoke.compare_attention(torch, got, ref, dt)
+            assert res["ok"], (packed, res)
+
+
+def test_attention_tiny_weights_match_plain(smoke):
+    """Scores spread wide (q times 16): weights below 2^-99 and exact
+    zeros, which take the TMA kernel's exact path for tiny quotients."""
+    q, k, v = smoke.attention_inputs(torch, 2, 3, 197, 64, 4, "cuda",
+                                     torch.bfloat16, packed=True,
+                                     q_scale=smoke.ATTN_WIDE_Q_SCALE)
+    assert route(q, k, v) == SM90
+    got = attention_sm90(q, k, v)
+    ref = fused_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    res = smoke.compare_attention(torch, got, ref, torch.bfloat16)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("shape,dtype,packed,kernel", [
+    ((64, 12, 197, 64), "bfloat16", True, SM90),   # the image route
+    ((2, 3, 256, 64), "bfloat16", False, SM90),
+    ((2, 3, 197, 32), "bfloat16", True, SM90),
+    ((2, 3, 197, 48), "bfloat16", True, SM90),
+    ((64, 12, 197, 64), "float32", True, STREAMING),
+    ((2, 3, 257, 64), "bfloat16", True, STREAMING),
+    ((2, 3, 197, 36), "bfloat16", False, STREAMING),
+])
+def test_attention_route_on_the_card(smoke, shape, dtype, packed, kernel):
+    """Each shape takes the kernel the route names, and only that kernel's
+    count moves."""
+    q, k, v = smoke.attention_inputs(torch, *shape, 5, "cuda",
+                                     getattr(torch, dtype), packed)
+    assert route(q, k, v) == kernel
+    reset_launch_counts()
+    fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fused_attention.launches == 1
+    assert fused_attention.kernel_launches == {
+        SM90: int(kernel == SM90), STREAMING: int(kernel == STREAMING)}
 
 
 def test_attention_kernel_is_deterministic_and_counted(smoke):
+    """Each kernel gives the same bits on two launches; each launch counts
+    once, in the total and in its kernel's count; the plain version counts
+    nothing."""
     q, k, v = smoke.attention_inputs(torch, 4, 12, 197, 64, 1, "cuda",
                                      torch.bfloat16, packed=True)
-    fused_attention.launches = 0
+    reset_launch_counts()
     a = fused_attention(q, k, v)
     b = fused_attention(q, k, v)
+    c = attention_streaming(q, k, v)
+    d = attention_streaming(q, k, v)
     fused_attention_plain(q, k, v)
     torch.cuda.synchronize()
-    assert fused_attention.launches == 2
-    assert torch.equal(a, b)
+    assert fused_attention.launches == 4
+    assert fused_attention.kernel_launches == {SM90: 2, STREAMING: 2}
+    assert torch.equal(a, b) and torch.equal(c, d)
 
 
 def test_attention_wrapper_checks_cuda_inputs(smoke):

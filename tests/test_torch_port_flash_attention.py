@@ -2,9 +2,10 @@
 against the JAX package's Pallas kernel run in interpret mode, on the same
 seeded inputs: values in f32 and bf16, gradients through the autograd
 Function against the JAX custom VJP, the transformer layer's dispatch rule,
-and the wrapper's argument checks. On the CPU the wrapper takes its plain
-version; the CUDA kernel itself is checked on the card
-(tests/test_torch_port_cuda.py, chip_smoke.py)."""
+the route between the two CUDA kernels, the launch counts and the wrappers'
+argument checks. On the CPU the wrapper takes its plain version; the CUDA
+kernels themselves are checked on the card (tests/test_torch_port_cuda.py,
+chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -18,8 +19,9 @@ from fer_vit_tpu.ops.flash_attention import (
 from fer_vit_tpu_torch.nn import transformer as port_transformer
 from fer_vit_tpu_torch.nn.transformer import MultiheadSelfAttention
 from fer_vit_tpu_torch.ops.attention import dot_product_attention
-from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
-                                                   fused_attention_plain)
+from fer_vit_tpu_torch.ops.flash_attention import (
+    SM90, STREAMING, attention_sm90, attention_streaming, fused_attention,
+    fused_attention_plain, reset_launch_counts, route)
 
 
 def _qkv(shape, seed):
@@ -34,7 +36,7 @@ def _bf16_ulp(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("length", [19, 37, 128, 197])
+@pytest.mark.parametrize("length", [19, 37, 128, 197, 256, 257])
 @pytest.mark.parametrize("head_dim", [64, 48])
 def test_fused_attention_matches_jax_kernel(length, head_dim, dtype):
     """f32 within 1e-5. bf16: both round the weights to bf16 before the
@@ -125,3 +127,90 @@ def test_wrapper_argument_checks():
     meta = [t.to("meta") for t in (q, k, v)]
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_attention(*meta)
+
+
+def _views(dtype, length, head_dim, layout, batch=2, heads=3):
+    """(B, H, L, Dh) q, k, v on the CPU in one of the layouts the kernels
+    meet: ``packed`` (head-split views of one (B, L, 3 H Dh) projection),
+    ``contiguous``, ``misaligned`` (base addresses 2 bytes past a 16-byte
+    boundary) or ``padded_rows`` (rows 4 elements longer than Dh, so row
+    strides of 2 (Dh + 4) bytes, not a multiple of 16)."""
+    shape = (batch, heads, length, head_dim)
+    if layout == "packed":
+        qkv = torch.zeros(batch, length, 3 * heads * head_dim, dtype=dtype)
+        return [t.reshape(batch, length, heads, head_dim).transpose(1, 2)
+                for t in qkv.chunk(3, dim=-1)]
+    if layout == "contiguous":
+        return [torch.zeros(shape, dtype=dtype) for _ in range(3)]
+    if layout == "misaligned":
+        n = batch * heads * length * head_dim
+        return [torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+                for _ in range(3)]
+    assert layout == "padded_rows"
+    return [torch.zeros(batch, heads, length, head_dim + 4,
+                        dtype=dtype)[..., :head_dim] for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype,length,head_dim,layout,kernel", [
+    ("bfloat16", 197, 64, "packed", SM90),          # the image route
+    ("bfloat16", 197, 64, "contiguous", SM90),
+    ("float32", 197, 64, "packed", STREAMING),      # the f32 check path
+    ("float32", 197, 64, "contiguous", STREAMING),
+    ("bfloat16", 1, 64, "contiguous", SM90),
+    ("bfloat16", 200, 64, "packed", SM90),
+    ("bfloat16", 256, 64, "packed", SM90),          # its longest L
+    ("bfloat16", 257, 64, "packed", STREAMING),
+    ("bfloat16", 257, 64, "contiguous", STREAMING),
+    ("bfloat16", 197, 16, "contiguous", SM90),
+    ("bfloat16", 197, 32, "packed", SM90),
+    ("bfloat16", 197, 48, "packed", SM90),
+    ("bfloat16", 197, 48, "contiguous", SM90),
+    ("bfloat16", 197, 36, "contiguous", STREAMING),  # Dh not a multiple of 16
+    ("bfloat16", 197, 36, "packed", STREAMING),
+    ("bfloat16", 197, 128, "contiguous", STREAMING),  # Dh above 64
+    ("bfloat16", 197, 64, "misaligned", STREAMING),
+    ("bfloat16", 197, 64, "padded_rows", STREAMING),
+    ("float16", 197, 64, "contiguous", STREAMING),
+])
+def test_route_by_dtype_shape_and_strides(dtype, length, head_dim, layout,
+                                          kernel):
+    """The TMA kernel takes bf16, L <= 256, Dh a multiple of 16 up to 64 and
+    views that meet TMA's 16-byte rules; everything else goes to the
+    streaming kernel. The choice depends on the layout alone, so CPU tensors
+    laid out as the card's would be show it."""
+    q, k, v = _views(getattr(torch, dtype), length, head_dim, layout)
+    assert route(q, k, v) == kernel
+
+
+def test_route_looks_at_every_input():
+    """A misaligned k or v sends the call to the streaming kernel too."""
+    q, k, v = _views(torch.bfloat16, 197, 64, "packed")
+    bad = _views(torch.bfloat16, 197, 64, "misaligned")
+    assert route(q, k, v) == SM90
+    assert route(q, bad[1], v) == STREAMING
+    assert route(q, k, bad[2]) == STREAMING
+
+
+def test_kernel_wrappers_refuse_what_they_do_not_take():
+    """Each kernel raises on inputs it does not take, before any build or
+    launch; neither runs on CPU tensors."""
+    f32 = _views(torch.float32, 197, 64, "packed")
+    with pytest.raises(ValueError, match="takes bf16"):
+        attention_sm90(*f32)
+    with pytest.raises(ValueError, match="takes bf16"):
+        attention_sm90(*_views(torch.bfloat16, 257, 64, "packed"))
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        attention_sm90(*_views(torch.bfloat16, 197, 64, "packed"))
+    with pytest.raises(ValueError, match="takes CUDA tensors"):
+        attention_streaming(*f32)
+
+
+def test_launch_counts_start_at_zero_and_cpu_calls_do_not_count():
+    reset_launch_counts()
+    assert fused_attention.launches == 0
+    assert fused_attention.kernel_launches == {SM90: 0, STREAMING: 0}
+    arrs = [torch.from_numpy(a).to(torch.bfloat16)
+            for a in _qkv((1, 2, 197, 64), seed=5)]
+    fused_attention(*arrs)
+    assert fused_attention.launches == 0
+    assert fused_attention.kernel_launches == {SM90: 0, STREAMING: 0}
