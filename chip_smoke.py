@@ -10,16 +10,20 @@ Phases, in order; any failure exits non-zero before the result line:
    its build time and the registers, shared memory and spills ptxas reports.
 2. kernels: each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it, in f32 and bf16, plus edge cases and a
-   gradient check; then the kernel's time, the plain version's, a yardstick's
-   (cuDNN for the fused IR-SE unit, ``scaled_dot_product_attention`` for the
-   fused attention) and the bound, all with CUDA events (the attention's
-   around CUDA-graph replays, so that its short calls are timed by the
-   card, not by the host that launches them). The fused IR-SE
-   unit (K1) first, then the fused attention (K2): both of its kernels, the
-   TMA/wgmma one (``flash_attention_sm90``, bf16 up to L = 256) and the
-   streaming one (``flash_attention``, the rest), each case logged with the
-   kernel the wrapper's route picked; each must also give bit-identical
-   results on two launches, and the two are timed in turns.
+   gradient check, each case logged with the kernel the wrapper's route
+   picked; each kernel must give bit-identical results on two launches.
+   Then device times from CUDA graphs (so that short calls are timed by
+   the card, not by the host that launches them): each pair of kernels in
+   turns, the plain version, a yardstick (cuDNN for the fused IR-SE unit,
+   ``scaled_dot_product_attention`` for the fused attention) and the bound.
+   The fused IR-SE unit (K1) first: its two-pass TMA/wgmma kernel
+   (``fused_irse_unit_sm90``, bf16 with 64-multiple channels: every IR-SE50
+   unit), checked against the plain version with the one-launch kernel
+   (``fused_irse_unit``, the rest: f32, other channel counts) on the same
+   cases, and the two-pass kernel's passes timed alone too. Then the fused
+   attention (K2): its TMA/wgmma kernel (``flash_attention_sm90``, bf16 up
+   to L = 256) and the streaming one (``flash_attention``, the rest), and
+   the wrapper's host-timed ms.
 3. latent slice: ``EncoderWrapper`` (pSp over IR-SE50, 256 px, BN folded,
    fused residual units, bf16) feeds ``LatentViT`` (depth 6, 512 wide)
    behind ``Predictor``.
@@ -29,13 +33,19 @@ Phases, in order; any failure exits non-zero before the result line:
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
 three requests with every kernel's launch count set to 0 just before and
-read just after, checks the counts and the outputs, times a few full
-batches and splits one by module, and compares the card (bf16, then f32)
-with the same modules run on the CPU in f32.
+read just after, checks the counts (the latent slice: 24 launches of
+``fused_irse_unit_sm90`` per batch and none of the other three kernels; the
+image slice: 12 of ``flash_attention_sm90`` per batch and none of the
+others) and the outputs, times a few full batches and splits one by
+module, and compares the card (bf16, then f32) with the same modules run
+on the CPU in f32.
 
-The line before the last is a JSON object listing every kernel; the last line
-is ``{"ok": true, "device": {...}}``. The script needs a CUDA device and the
-repository around it; without either it exits non-zero and prints no result.
+The line before the last is a JSON object listing the four kernels
+(``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
+``flash_attention``) with their launches on the main path, times, bound
+and error; the last line is ``{"ok": true, "device": {...}}``. The script
+needs a CUDA device and the repository around it; without either it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -70,17 +80,30 @@ IRSE50_UNIT_SHAPES = (
 # The slice serves batches of 16, so the kernel is checked and timed at the
 # shapes the main path gives it: (16, H, W, Cin).
 SLICE_BATCH = 16
-# Edge cases: (H, W, Cin, Cout, stride), each with the tile pick_tile gives
-# it. An image narrower than the 16x16 tile of a wide image (bf16 and f32:
-# one 8x8 tile); an output height not a multiple of the tile height (12x8:
-# 8x8 tiles); ragged in both directions at stride 1 (24x12: 16x8 tiles in
-# bf16, 8x8 in f32) and at stride 2 (output 10x6: 8x4 in bf16, 4x4 in f32).
+# Edge cases: (H, W, Cin, Cout, stride). For the one-launch kernel, with
+# the tile pick_tile gives it: an image narrower than the 16x16 tile of a
+# wide image (bf16 and f32: one 8x8 tile); an output height not a multiple
+# of the tile height (12x8: 8x8 tiles); ragged in both directions at stride
+# 1 (24x12: 16x8 tiles in bf16, 8x8 in f32) and at stride 2 (output 10x6:
+# 8x4 in bf16, 4x4 in f32). For the two-pass kernel (bf16), whose tile is
+# 8x16 or the image where smaller: a tile of half its 128 rows (8x8), of
+# 96 (12x8), ragged 10x12 tiles (24x12), and at stride 2 a 10x6 output
+# tile over a 21x13-pixel halo.
 EDGE_CASES = (
     (8, 8, 64, 64, 1),
     (12, 8, 64, 64, 1),
     (24, 12, 64, 64, 1),
     (20, 12, 64, 128, 2),
 )
+# bf16 with channels that are not multiples of 64: the route gives it to
+# the one-launch kernel.
+K1_MMA_BF16_CASES = ((16, 16, 32, 32, 1),)
+# K1's two kernels, by source name.
+K1_SM90 = "fused_irse_unit_sm90"
+K1_MMA = "fused_irse_unit"
+# K1 device times: calls captured per CUDA graph and replays.
+K1_GRAPH_CALLS = 10
+K1_GRAPH_REPS = 3
 
 
 # K2 (fused attention) at the image slice's shape: ViT-Base/16 at 224 px,
@@ -304,38 +327,65 @@ def yardstick(F, x, a1, b1, w1, alpha, w2, b2, stride):
     return run
 
 
+def unit_plan_text(name, H, W, cin, cout, s, dtype) -> str:
+    """How a kernel cuts this unit: the two-pass kernel's tile, N slab and
+    B stages per pass, the one-launch kernel's tile."""
+    from fer_vit_tpu_torch.ops.fused_irse_unit import pick_tile, plan
+
+    if name == K1_SM90:
+        return "plan " + " | ".join(
+            f"{q['tile'][0]}x{q['tile'][1]} NS {q['ns']} stages {q['stages']}"
+            for q in plan(SLICE_BATCH, H, W, cin, cout, s))
+    return f"tile {pick_tile(H // s, W // s, cin, cout, s, dtype)}"
+
+
 def phase_kernels(torch) -> dict:
     import torch.nn.functional as F
 
     from fer_vit_tpu_torch.ops.fused_irse_unit import (
-        fused_irse_residual, fused_irse_residual_plain, pick_tile)
+        KERNELS, fused_irse_residual, fused_irse_residual_plain,
+        fused_irse_residual_sm90, pick_tile, route)
 
+    # the plain version's f32 convolutions in true f32 when the phase runs
+    # alone too (main sets the same)
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     failures = []
-    max_err_bf16 = 0.0
+    max_err_bf16 = {K1_SM90: 0.0, K1_MMA: 0.0}
     cases = [(H, H, cin, cout, s) for H, cin, cout, s, _ in
              IRSE50_UNIT_SHAPES]
     n_main = len(cases)
     cases += list(EDGE_CASES)
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (H, W, cin, cout, s) in enumerate(cases):
+        extra = list(K1_MMA_BF16_CASES) if dtype == torch.bfloat16 else []
+        for i, (H, W, cin, cout, s) in enumerate(cases + extra):
             args = unit_inputs(torch, H, W, cin, cout, SLICE_BATCH, 100 + i,
                                dev, dtype)
-            got = fused_irse_residual(*args, stride=s)
-            torch.cuda.synchronize()
             ref = fused_irse_residual_plain(*args, stride=s)
-            torch.cuda.synchronize()
-            c = compare_unit(torch, got, ref, dtype)
-            used = pick_tile(H // s, W // s, cin, cout, s, dtype)
-            log(f"check fused_irse_unit {str(dtype)[6:]} {H}x{W} "
-                f"{cin}->{cout} s{s} tile {used}: res2 err {c['res2_err']:.3e} "
-                f"(max|res2| {c['res2_scale']:.3f}) sums err "
-                f"{c['sums_err']:.3e} ({c['sums_err_l1']:.3e} of L1) "
-                f"{'ok' if c['ok'] else 'FAIL'}")
-            if not c["ok"]:
-                failures.append(f"{dtype} {H}x{W} {cin}->{cout} s{s}")
-            if dtype == torch.bfloat16 and i < n_main:
-                max_err_bf16 = max(max_err_bf16, c["res2_err"])
+            chosen = route(args[0], args[3], args[5])
+            # the routed call, and the one-launch kernel too where the
+            # two-pass kernel took the case
+            runs = [(chosen, lambda: fused_irse_residual(*args, stride=s))]
+            if chosen == K1_SM90:
+                runs.append((K1_MMA, lambda: KERNELS[K1_MMA](*args,
+                                                             stride=s)))
+            for name, fn in runs:
+                got = fn()
+                torch.cuda.synchronize()
+                c = compare_unit(torch, got, ref, dtype)
+                cut = unit_plan_text(name, H, W, cin, cout, s, dtype)
+                log(f"check {name} {str(dtype)[6:]} {H}x{W} {cin}->{cout} "
+                    f"s{s} {cut}{' (routed)' if name == chosen else ''}: "
+                    f"res2 err {c['res2_err']:.3e} (max|res2| "
+                    f"{c['res2_scale']:.3f}) sums err {c['sums_err']:.3e} "
+                    f"({c['sums_err_l1']:.3e} of L1) "
+                    f"{'ok' if c['ok'] else 'FAIL'}")
+                if not c["ok"]:
+                    failures.append(f"{name} {dtype} {H}x{W} {cin}->{cout} "
+                                    f"s{s}")
+                if dtype == torch.bfloat16 and i < n_main:
+                    max_err_bf16[name] = max(max_err_bf16[name],
+                                             c["res2_err"])
 
     # gradient through the autograd Function vs autograd through the plain
     # version (the backward recomputes through it, so they agree closely)
@@ -351,52 +401,97 @@ def phase_kernels(torch) -> dict:
     log(f"check fused_irse_unit grad f32 8x8 8->8 s2: max err {gerr:.3e}")
     if gerr > 1e-3:
         failures.append(f"gradient error {gerr}")
+
+    # two launches on the same inputs give the same bits, in each kernel
+    args = unit_inputs(torch, 32, 32, 256, 256, SLICE_BATCH, 9, dev,
+                       torch.bfloat16)
+    for name, fn in KERNELS.items():
+        a, b = fn(*args, stride=1), fn(*args, stride=1)
+        same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        log(f"check {name} bf16 32x32 256->256 s1 batch {SLICE_BATCH}: two "
+            f"launches {'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{name}: two launches differ")
     check(not failures, f"fused_irse_unit disagrees with its plain version: "
           f"{failures}")
 
-    # times at the main path's shapes, bf16
-    totals = {"ms": 0.0, "plain_ms": 0.0, "yardstick_ms": 0.0,
-              "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0}
+    # device times at the main path's shapes, bf16, from CUDA graphs: the
+    # two kernels in turns (two-pass, one-launch, one-launch, two-pass), the
+    # two-pass kernel's passes alone, the plain version, the cuDNN
+    # yardstick; and the bound
+    keys = ("ms", "mma_ms", "conv1_ms", "conv2_ms", "plain_ms",
+            "yardstick_ms", "bound_ms", "ops_ms", "bytes_ms")
+    totals = dict.fromkeys(keys, 0.0)
     rows = []
+
+    def graph_ms(fn):
+        return time_graph_ms(torch, fn, calls=K1_GRAPH_CALLS,
+                             reps=K1_GRAPH_REPS)
+
     for i, (H, cin, cout, s, n_units) in enumerate(IRSE50_UNIT_SHAPES):
         args = unit_inputs(torch, H, H, cin, cout, SLICE_BATCH, 200 + i, dev,
                            torch.bfloat16)
         x, a1, b1, w1, alpha, w2, b2 = args
         k_args = (x, a1, b1, kernel_layout(w1, torch.bfloat16), alpha,
                   kernel_layout(w2, torch.bfloat16), b2)
-        t_k = time_ms(torch, lambda: fused_irse_residual(*k_args, stride=s))
-        t_p = time_ms(torch,
-                      lambda: fused_irse_residual_plain(*args, stride=s))
+        turns = {K1_SM90: [], K1_MMA: []}
+        for name in (K1_SM90, K1_MMA, K1_MMA, K1_SM90):
+            turns[name].append(graph_ms(
+                lambda: KERNELS[name](*k_args, stride=s)))
+        t_1 = graph_ms(lambda: fused_irse_residual_sm90(*k_args, stride=s,
+                                                        passes=1))
+        t_2 = graph_ms(lambda: fused_irse_residual_sm90(*k_args, stride=s,
+                                                        passes=2))
+        t_p = graph_ms(lambda: fused_irse_residual_plain(*args, stride=s))
         xc = x.contiguous(memory_format=torch.contiguous_format)
         k1 = w1.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
         k2 = w2.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        t_y = time_ms(torch, yardstick(F, xc, a1, b1, k1,
-                                       alpha.to(torch.bfloat16), k2,
-                                       b2.to(torch.bfloat16), s))
+        t_y = graph_ms(yardstick(F, xc, a1, b1, k1, alpha.to(torch.bfloat16),
+                                 k2, b2.to(torch.bfloat16), s))
         ops_ms, bytes_ms = unit_bound_ms(SLICE_BATCH, H, H, cin, cout, s)
         bound = max(ops_ms, bytes_ms)
+        t_k = sum(turns[K1_SM90]) / 2
+        t_m = sum(turns[K1_MMA]) / 2
         row = {"shape": f"{H}x{H} {cin}->{cout} s{s}", "units": n_units,
-               "tile": list(pick_tile(H // s, H // s, cin, cout, s)),
-               "ms": t_k, "plain_ms": t_p, "yardstick_ms": t_y,
-               "bound_ms": bound, "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+               "plan": unit_plan_text(K1_SM90, H, H, cin, cout, s,
+                                      torch.bfloat16),
+               "tile_mma": list(pick_tile(H // s, H // s, cin, cout, s)),
+               "ms": t_k, "mma_ms": t_m, "conv1_ms": t_1, "conv2_ms": t_2,
+               "plain_ms": t_p, "yardstick_ms": t_y, "bound_ms": bound,
+               "ops_ms": ops_ms, "bytes_ms": bytes_ms}
         rows.append(row)
         for k in totals:
             totals[k] += n_units * row[k]
-        log(f"time fused_irse_unit bf16 batch {SLICE_BATCH} {row['shape']} "
-            f"tile {tuple(row['tile'])}: kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, cudnn yardstick {t_y:.4f} ms, bound "
-            f"{bound:.4f} ms (operations {ops_ms:.4f}, bytes "
-            f"{bytes_ms:.4f}; {t_k / bound:.1f}x bound)")
+        log(f"time fused_irse_unit bf16 batch {SLICE_BATCH} {row['shape']}, "
+            f"device ms per call: {K1_SM90} "
+            f"{' / '.join(f'{t:.4f}' for t in turns[K1_SM90])} (mean "
+            f"{t_k:.4f}; conv1 {t_1:.4f}, conv2 and sums {t_2:.4f}; "
+            f"{row['plan']}), {K1_MMA} "
+            f"{' / '.join(f'{t:.4f}' for t in turns[K1_MMA])} (mean "
+            f"{t_m:.4f}; tile {tuple(row['tile_mma'])}), plain {t_p:.4f}, "
+            f"cudnn yardstick {t_y:.4f}, bound {bound:.4f} (operations "
+            f"{ops_ms:.4f}, bytes {bytes_ms:.4f}); {t_k / bound:.2f}x bound, "
+            f"{t_k / t_y:.2f}x yardstick, {t_m / t_k:.2f}x faster than "
+            f"{K1_MMA}")
     log("time fused_irse_unit per forward (24 units, batch "
         f"{SLICE_BATCH}): " + ", ".join(f"{k} {v:.4f}"
                                            for k, v in totals.items()))
     bound_by = ("operations" if totals["ops_ms"] >= totals["bytes_ms"]
                 else "bytes")
-    return {"fused_irse_unit": dict(
-        totals, max_abs_err=max_err_bf16, bound_by=bound_by, rows=rows,
-        timed=f"per forward, 24 units at batch {SLICE_BATCH}")}
+    timed = (f"device time per forward by CUDA graph, 24 units at batch "
+             f"{SLICE_BATCH}, mean of 2 turns")
+    common = {k: totals[k] for k in ("plain_ms", "yardstick_ms", "bound_ms",
+                                     "ops_ms", "bytes_ms")}
+    return {
+        K1_SM90: dict(common, ms=totals["ms"], conv1_ms=totals["conv1_ms"],
+                      conv2_ms=totals["conv2_ms"],
+                      max_abs_err=max_err_bf16[K1_SM90], bound_by=bound_by,
+                      rows=rows, timed=timed),
+        K1_MMA: dict(common, ms=totals["mma_ms"],
+                     max_abs_err=max_err_bf16[K1_MMA], bound_by=bound_by,
+                     timed=timed)}
 
 
 def attention_inputs(torch, B, H, L, dh, seed, device, dtype, packed=False,
@@ -580,8 +675,8 @@ def main() -> int:
     kernels = phase_kernels(torch)
     kernels.update(phase_attention(torch))
     # each kernel's launches on the path that runs it
-    launches = {"fused_irse_unit": phase_slice(torch, dev_info)[
-        "fused_irse_unit"]}
+    latent = phase_slice(torch, dev_info)
+    launches = {name: latent[name] for name in (K1_SM90, K1_MMA)}
     image = phase_image_slice(torch, dev_info)
     for name in ("flash_attention_sm90", "flash_attention"):
         launches[name] = image[name]
@@ -594,6 +689,11 @@ def main() -> int:
 
 
 KERNEL_META = {
+    "fused_irse_unit_sm90": {
+        "route": "cuda",
+        "source": "fer_vit_tpu_torch/csrc/fused_irse_unit_sm90.cu",
+        "replaces": "fer_vit_tpu/ops/fused_irse_unit.py:86",
+    },
     "fused_irse_unit": {
         "route": "cuda",
         "source": "fer_vit_tpu_torch/csrc/fused_irse_unit.cu",
@@ -766,9 +866,7 @@ def build_slice(torch, device, dtype, psp_sd, vit_sd, batch_size):
 def phase_slice(torch, dev_info) -> dict:
     from fer_vit_tpu_torch.interop.from_jax import (
         latent_vit_state_dict_from_jax, psp_state_dict_from_jax)
-    from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
-                                                       reset_launch_counts)
-    from fer_vit_tpu_torch.ops.fused_irse_unit import fused_irse_residual
+    from fer_vit_tpu_torch.ops import flash_attention, fused_irse_unit
 
     psp_sd = psp_state_dict_from_jax(psp_jax_variables())
     vit_sd = latent_vit_state_dict_from_jax(latent_vit_jax_params())
@@ -781,23 +879,24 @@ def phase_slice(torch, dev_info) -> dict:
                 for n in REQUEST_SIZES]
 
     # the main path: three requests through the Predictor's entry point
-    fused_irse_residual.launches = 0
-    reset_launch_counts()
+    fused_irse_unit.reset_launch_counts()
+    flash_attention.reset_launch_counts()
     t0 = time.perf_counter()
     outs = [pred.predict(r) for r in requests]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"fused_irse_unit": fused_irse_residual.launches,
-                **fused_attention.kernel_launches}
+    launches = {**fused_irse_unit.fused_irse_residual.kernel_launches,
+                **flash_attention.fused_attention.kernel_launches}
     n_batches = sum(-(-n // SLICE_BATCH) for n in REQUEST_SIZES)
     log(f"slice: {len(requests)} requests of {list(REQUEST_SIZES)} images, "
         f"{n_batches} batches of {SLICE_BATCH}, launches {launches}, "
         f"{elapsed:.3f} s")
-    # LatentViT attends over 19 tokens: below the fused kernel's threshold
-    check(launches == {"fused_irse_unit": 24 * n_batches,
+    # every bf16 unit takes the two-pass kernel; LatentViT attends over 19
+    # tokens: below the fused attention's threshold
+    check(launches == {K1_SM90: 24 * n_batches, K1_MMA: 0,
                        "flash_attention_sm90": 0, "flash_attention": 0},
           f"latent slice launches {launches}, expected "
-          f"{24 * n_batches} fused_irse_unit and no attention kernel")
+          f"{24 * n_batches} {K1_SM90}, 0 {K1_MMA} and no attention kernel")
     for n, (labels, probs) in zip(REQUEST_SIZES, outs):
         check(labels.shape == (n,) and probs.shape == (n, 7),
               f"shapes {labels.shape} {probs.shape} for {n} images")
@@ -951,9 +1050,7 @@ def phase_image_slice(torch, dev_info) -> dict:
     from fer_vit_tpu_torch.interop.from_jax import (
         image_vit_state_dict_from_jax)
     from fer_vit_tpu_torch.nn.transformer import layer_norm, linear
-    from fer_vit_tpu_torch.ops.flash_attention import (fused_attention,
-                                                       reset_launch_counts)
-    from fer_vit_tpu_torch.ops.fused_irse_unit import fused_irse_residual
+    from fer_vit_tpu_torch.ops import flash_attention, fused_irse_unit
 
     sd = image_vit_state_dict_from_jax(image_vit_jax_params())
     pred = build_image_slice(torch, None, None, sd, IMAGE_BATCH)
@@ -966,26 +1063,26 @@ def phase_image_slice(torch, dev_info) -> dict:
                              dtype=np.uint8) for n in IMAGE_REQUEST_SIZES]
 
     # the main path: three requests through the Predictor's entry point
-    fused_irse_residual.launches = 0
-    reset_launch_counts()
+    fused_irse_unit.reset_launch_counts()
+    flash_attention.reset_launch_counts()
     t0 = time.perf_counter()
     outs = [pred.predict(r) for r in requests]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {"fused_irse_unit": fused_irse_residual.launches,
-                **fused_attention.kernel_launches}
+    launches = {**fused_irse_unit.fused_irse_residual.kernel_launches,
+                **flash_attention.fused_attention.kernel_launches}
     n_batches = sum(-(-n // IMAGE_BATCH) for n in IMAGE_REQUEST_SIZES)
     log(f"image slice: {len(requests)} requests of "
         f"{list(IMAGE_REQUEST_SIZES)} images, {n_batches} batches of "
         f"{IMAGE_BATCH}, launches {launches}, {elapsed:.3f} s")
     # bf16 ViT-Base attention (L = 197, Dh = 64, packed views) takes the
     # TMA kernel; the streaming kernel serves the f32 run below
-    check(launches == {"fused_irse_unit": 0,
+    check(launches == {K1_SM90: 0, K1_MMA: 0,
                        "flash_attention_sm90": 12 * n_batches,
                        "flash_attention": 0},
           f"image slice launches {launches}, expected "
-          f"{12 * n_batches} flash_attention_sm90, 0 flash_attention and 0 "
-          f"fused_irse_unit")
+          f"{12 * n_batches} flash_attention_sm90, 0 flash_attention and no "
+          f"fused IR-SE unit kernel")
     for n, (labels, probs) in zip(IMAGE_REQUEST_SIZES, outs):
         check(labels.shape == (n,) and probs.shape == (n, 7),
               f"shapes {labels.shape} {probs.shape} for {n} images")

@@ -65,9 +65,9 @@
 //
 // The tensor maps are encoded on the host at every call, over the views as
 // they are given: (Dh, L, H, B) with the tensors' own byte strides, so the
-// head-split views of a packed qkv projection need no copy.
-// cuTensorMapEncodeTiled is fetched through the runtime's driver entry
-// point, so the build links nothing beyond the CUDA runtime.
+// head-split views of a packed qkv projection need no copy. The barrier,
+// TMA and wgmma helpers are those of sm90.cuh, shared with the fused IR-SE
+// unit's Hopper kernel.
 
 #include <cuda.h>
 #include <math.h>
@@ -75,6 +75,7 @@
 #include <stdio.h>
 
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -101,172 +102,6 @@ struct Params {
   float scale;
 };
 
-// -- shared-memory barriers and TMA ------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 64 x 64 box of a (Dh, L, H, B) tensor map into shared memory.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
-      "r"(h), "r"(b)
-      : "memory");
-}
-
-// One 64 x 64 box from shared memory into a (Dh, L, H, B) tensor map; rows
-// and columns past L and Dh are not written. Its reads of shared memory are
-// waited for by bulk_wait_read.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int row, int h, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
-      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(0), "r"(row), "r"(h), "r"(b)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// Makes this thread's writes to shared memory visible to TMA.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Barrier of the 128 threads of one consumer warpgroup (ids 1 and 2; 0 is
-// __syncthreads).
-__device__ __forceinline__ void warpgroup_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-// -- wgmma ---------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle. Rows of 128 bytes, the
-// 8-row atoms 1024 bytes apart (stride byte offset); the leading byte offset
-// is unused for a K-major operand and for an MN-major one of 64 columns.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
-  d |= (uint64_t)1 << 16;            // leading byte offset (16-byte units)
-  d |= (uint64_t)(1024 >> 4) << 32;  // stride byte offset
-  d |= (uint64_t)1 << 62;            // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// D(64 x 64) = A(64 x 16) B(16 x 64) + (scale_d ? D : 0), A and B K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// D(64 x 8) = A(64 x 16) B(16 x 8) + (scale_d ? D : 0), A and B K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss_n8(float* d, uint64_t a, uint64_t b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "%4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// D(64 x 64) = A(64 x 16) B(16 x 64) + (scale_d ? D : 0), A from registers
-// (4 bf16 pairs a thread, in the accumulator layout of a 64 x 16 tile), B
-// MN-major in shared memory (transposed).
-__device__ __forceinline__ void wgmma_rs_n64_tb(float* d, const uint32_t* a,
-                                                uint64_t b,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers across
-// the fence, commit and wait that bracket the asynchronous products.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -275,15 +110,6 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // -- the kernel ----------------------------------------------------------------
@@ -523,7 +349,7 @@ __device__ __forceinline__ void finish_tile(const Params& p, float* s,
   fence_async_shared();
   warpgroup_sync(1 + wg);
   if ((threadIdx.x & 127) == 0 && t * kTile < p.L)
-    tma_store(to, obuf, t * kTile, h, b);
+    tma_store_4d(to, obuf, 0, t * kTile, h, b);
 }
 
 template <int NG, bool kExact, bool kPow2>
@@ -571,11 +397,11 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const int h = bh - b * p.H;
       const uint32_t stage = base + s * kStageBytes;
       for (int t = 0; t < n_tiles; ++t) {
-        tma_load(stage + t * kBoxBytes, &tq, bar, t * kTile, h, b);
-        tma_load(stage + kTensorBytes + t * kBoxBytes, &tk, bar, t * kTile, h,
-                 b);
-        tma_load(stage + 2 * kTensorBytes + t * kBoxBytes, &tv, bar,
-                 t * kTile, h, b);
+        tma_load_4d(stage + t * kBoxBytes, &tq, bar, 0, t * kTile, h, b);
+        tma_load_4d(stage + kTensorBytes + t * kBoxBytes, &tk, bar, 0,
+                    t * kTile, h, b);
+        tma_load_4d(stage + 2 * kTensorBytes + t * kBoxBytes, &tv, bar, 0,
+                    t * kTile, h, b);
       }
     }
     return;
@@ -613,37 +439,12 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- host side -------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
 char g_message[256];
 
 // Own errors are negative, with their text in g_message.
 int fail(const char* what, int code) {
   snprintf(g_message, sizeof g_message, "%s (%d)", what, code);
   return -1;
-}
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
 }
 
 // A (Dh, L, H, B) map over one of q, k, v: strides (batch, head, row) in

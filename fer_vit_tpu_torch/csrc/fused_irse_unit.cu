@@ -59,6 +59,7 @@
 
 #include <stddef.h>
 
+#include "irse.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -94,12 +95,6 @@ struct Geometry {
     return r >= 0 && r < H && c >= 0 && c < W;
   }
 };
-
-// bn1 affine in f32 without FMA contraction, as the plain version computes
-// it (the caller zeroes pixels outside the image).
-__device__ __forceinline__ float affine(float x, float a, float b) {
-  return __fadd_rn(__fmul_rn(x, a), b);
-}
 
 // conv1 epilogue: PReLU on channels (co, co+1) of pixel p, zero outside the
 // image, round to T into the shared intermediate.
@@ -357,19 +352,6 @@ fused_irse_unit(const T* __restrict__ x, const float* __restrict__ a1,
     for (int q = 0; q < m_chunks; ++q) acc += red[q * cout + co];
     pb[co] = acc;
   }
-}
-
-// sums[b][co] = sum over tiles of partials[b][tile][co], in tile order.
-__global__ void reduce_tile_sums(const float* __restrict__ partials,
-                                 float* __restrict__ sums, int n_tiles,
-                                 int cout) {
-  const int b = blockIdx.y;
-  const int co = blockIdx.x * blockDim.x + threadIdx.x;
-  if (co >= cout) return;
-  const float* p = partials + (size_t)b * n_tiles * cout + co;
-  float acc = 0.f;
-  for (int t = 0; t < n_tiles; ++t) acc += p[(size_t)t * cout];
-  sums[(size_t)b * cout + co] = acc;
 }
 
 // Dynamic shared memory of one block (fused_irse_unit.py::smem_bytes).

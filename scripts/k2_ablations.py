@@ -53,7 +53,7 @@ PATCHES = {
     "no expf": [("s[4 * j + e] = expf(kPow2", "s[4 * j + e] = (kPow2")],
     "no division": [("  const float q = __fmul_rn(es, y);",
                      "  return e * y;\n  const float q = __fmul_rn(es, y);")],
-    "no output store": [("    tma_store(to, obuf, t * kTile, h, b);",
+    "no output store": [("    tma_store_4d(to, obuf, 0, t * kTile, h, b);",
                          "    (void)0;")],
     "phases": [
         ('#include "mma.cuh"\n',
@@ -67,8 +67,8 @@ PATCHES = {
         ("  // 3. O = W V\n", "  if (pr) pr[2] = clock64();\n  // 3. O = W V\n"),
         ("  fence_regs<kMaxDh / 2>(o);\n\n  // 4.",
          "  fence_regs<kMaxDh / 2>(o);\n  if (pr) pr[3] = clock64();\n\n  // 4."),
-        ("    tma_store(to, obuf, t * kTile, h, b);\n}",
-         "    tma_store(to, obuf, t * kTile, h, b);\n"
+        ("    tma_store_4d(to, obuf, 0, t * kTile, h, b);\n}",
+         "    tma_store_4d(to, obuf, 0, t * kTile, h, b);\n"
          "  if (pr) pr[4] = clock64();\n}"),
         ("      float sc[4 * NG];\n",
          "      float sc[4 * NG];\n      const long long t_start = clock64();\n"),

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: the fused IR-SE unit against its
-plain version at the IR-SE50 unit shapes, the fused attention's two kernels
+"""The port's CUDA kernels on the card: the fused IR-SE unit's two kernels
+against their plain version at the IR-SE50 unit shapes and the edge cases of
+``chip_smoke.py``, the fused attention's two kernels
 at the image slice's shape and the edge and boundary cases of
 ``chip_smoke.py``, in f32 and bf16; which kernel each shape takes,
 determinism, the launch counts and the wrappers' device-side checks. Marked
@@ -19,6 +20,7 @@ import torch
 from fer_vit_tpu_torch.ops.flash_attention import (
     SM90, STREAMING, attention_sm90, attention_streaming, fused_attention,
     fused_attention_plain, reset_launch_counts, route)
+from fer_vit_tpu_torch.ops import fused_irse_unit as fu
 from fer_vit_tpu_torch.ops.fused_irse_unit import (fused_irse_residual,
                                                    fused_irse_residual_plain)
 
@@ -54,6 +56,84 @@ def test_kernel_matches_plain(smoke, H, cin, cout, stride, dtype):
     assert got[0].dtype == dt and got[1].dtype == torch.float32
     res = smoke.compare_unit(torch, got, ref, dt)
     assert res["ok"], res
+
+
+@pytest.mark.parametrize("H,cin,cout,stride", SHAPES)
+def test_one_launch_kernel_matches_plain_in_bf16(smoke, H, cin, cout, stride):
+    """The one-launch kernel on the bf16 cases the route gives the two-pass
+    kernel."""
+    args = smoke.unit_inputs(torch, H, H, cin, cout, 2, 0, "cuda",
+                             torch.bfloat16)
+    got = fu.fused_irse_residual_mma(*args, stride=stride)
+    ref = fused_irse_residual_plain(*args, stride=stride)
+    torch.cuda.synchronize()
+    res = smoke.compare_unit(torch, got, ref, torch.bfloat16)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_two_pass_kernel_matches_plain_on_edge_cases(smoke, case):
+    """chip_smoke.EDGE_CASES with its inputs (batch 16, its seeds): tiles of
+    64 and 96 rows, ragged tiles, a stride-2 halo wider than the output."""
+    H, W, cin, cout, stride = smoke.EDGE_CASES[case]
+    args = smoke.unit_inputs(torch, H, W, cin, cout, smoke.SLICE_BATCH,
+                             100 + len(SHAPES) + case, "cuda",
+                             torch.bfloat16)
+    assert fu.route(args[0], args[3], args[5]) == fu.SM90
+    got = fu.fused_irse_residual_sm90(*args, stride=stride)
+    ref = fused_irse_residual_plain(*args, stride=stride)
+    torch.cuda.synchronize()
+    res = smoke.compare_unit(torch, got, ref, torch.bfloat16)
+    assert res["ok"], res
+
+
+@pytest.mark.parametrize("dtype,cin,cout,kernel", [
+    ("bfloat16", 64, 128, fu.SM90),
+    ("bfloat16", 256, 256, fu.SM90),
+    ("float32", 64, 64, fu.MMA),
+    ("bfloat16", 32, 32, fu.MMA),
+    ("bfloat16", 64, 96, fu.MMA),
+])
+def test_fused_unit_route_on_the_card(smoke, dtype, cin, cout, kernel):
+    """Each case takes the kernel the route names, and only that kernel's
+    count moves."""
+    args = smoke.unit_inputs(torch, 16, 16, cin, cout, 2, 3, "cuda",
+                             getattr(torch, dtype))
+    assert fu.route(args[0], args[3], args[5]) == kernel
+    fu.reset_launch_counts()
+    fused_irse_residual(*args, stride=2)
+    torch.cuda.synchronize()
+    assert fused_irse_residual.launches == 1
+    assert fused_irse_residual.kernel_launches == {
+        fu.SM90: int(kernel == fu.SM90), fu.MMA: int(kernel == fu.MMA)}
+
+
+def test_fused_unit_kernels_are_deterministic(smoke):
+    """Each kernel gives the same bits on two launches at a main-path
+    shape."""
+    args = smoke.unit_inputs(torch, 32, 32, 256, 256, smoke.SLICE_BATCH, 9,
+                             "cuda", torch.bfloat16)
+    for fn in fu.KERNELS.values():
+        a, b = fn(*args, stride=1), fn(*args, stride=1)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_two_pass_wrapper_refuses_what_it_does_not_take(smoke):
+    x, a1, b1, w1, alpha, w2, b2 = smoke.unit_inputs(
+        torch, 8, 8, 64, 64, 1, 2, "cuda", torch.float32)
+    with pytest.raises(ValueError, match="takes bf16"):
+        fu.fused_irse_residual_sm90(x, a1, b1, w1, alpha, w2, b2)
+    xb = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="takes bf16"):
+        fu.fused_irse_residual_sm90(xb[..., :32].contiguous(), a1[:32],
+                                    b1[:32], w1[:, :, :32, :32],
+                                    alpha[:32], w2[:, :, :32, :32], b2[:32])
+    with pytest.raises(ValueError, match="contiguous"):
+        fu.fused_irse_residual_sm90(xb.transpose(1, 2), a1, b1, w1, alpha,
+                                    w2, b2)
+    with pytest.raises(ValueError, match="passes"):
+        fu.fused_irse_residual_sm90(xb, a1, b1, w1, alpha, w2, b2, passes=4)
 
 
 def test_kernel_is_deterministic_and_counted(smoke):
