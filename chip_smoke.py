@@ -29,6 +29,17 @@ Phases, in order; any failure exits non-zero before the result line:
    behind ``Predictor``.
 4. image slice: ``ImageViT`` at the width of ViT-Base/16 at 224 px (12
    layers, 768 wide, 197 tokens) behind ``Predictor(image_route=True)``.
+5. latent production and training: a class-structured directory of 256 px
+   PNGs (7 classes, 64 train and 16 val images each) made from the seed
+   goes through ``generate_latents`` at its batch of 256 with the
+   full-width pSp (24 launches of ``fused_irse_unit_sm90`` per batch and
+   none of the other kernels; packs, labels, paths, manifest, resume; w+
+   against the CPU in f32 and against the serving batch of 16), images/s;
+   then ``train_latent_vit.main`` trains the full-width LatentViT on the
+   packs for 3 epochs with the CLI's defaults (the experiment-dir contract,
+   finite losses, steps/s and samples/s per epoch, no kernel launched), and
+   5 harness steps with fixed draws compare the card in f32 and bf16 with
+   the CPU in f32. The kernel phase checks and times K1 at that batch too.
 
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
@@ -40,7 +51,9 @@ others) and the outputs, times a few full batches and splits one by
 module, and compares the card (bf16, then f32) with the same modules run
 on the CPU in f32.
 
-The line before the last is a JSON object listing the four kernels
+Before it, a JSON line gives phase 5's batches, images and launches per
+kernel, for production and for training. The line before the last is a
+JSON object listing the four kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
 ``flash_attention``) with their launches on the main path, times, bound
 and error; the last line is ``{"ok": true, "device": {...}}``. The script
@@ -50,6 +63,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -104,6 +118,11 @@ K1_MMA = "fused_irse_unit"
 # K1 device times: calls captured per CUDA graph and replays.
 K1_GRAPH_CALLS = 10
 K1_GRAPH_REPS = 3
+# Latent production (generate_latents) encodes 256 images a batch. K1 is
+# checked there on the 256 px unit, whose x and y1 are 256 * 256 * 256 *
+# 64 * 2 = 2^31 bytes, and on the two 128 px shapes: (H in, Cin, Cout, s).
+PRODUCTION_BATCH = 256
+K1_PRODUCTION_CASES = ((256, 64, 64, 2), (128, 64, 64, 1), (128, 64, 128, 2))
 
 
 # K2 (fused attention) at the image slice's shape: ViT-Base/16 at 224 px,
@@ -327,7 +346,7 @@ def yardstick(F, x, a1, b1, w1, alpha, w2, b2, stride):
     return run
 
 
-def unit_plan_text(name, H, W, cin, cout, s, dtype) -> str:
+def unit_plan_text(name, H, W, cin, cout, s, dtype, batch=SLICE_BATCH) -> str:
     """How a kernel cuts this unit: the two-pass kernel's tile, N slab and
     B stages per pass, the one-launch kernel's tile."""
     from fer_vit_tpu_torch.ops.fused_irse_unit import pick_tile, plan
@@ -335,7 +354,7 @@ def unit_plan_text(name, H, W, cin, cout, s, dtype) -> str:
     if name == K1_SM90:
         return "plan " + " | ".join(
             f"{q['tile'][0]}x{q['tile'][1]} NS {q['ns']} stages {q['stages']}"
-            for q in plan(SLICE_BATCH, H, W, cin, cout, s))
+            for q in plan(batch, H, W, cin, cout, s))
     return f"tile {pick_tile(H // s, W // s, cin, cout, s, dtype)}"
 
 
@@ -414,6 +433,7 @@ def phase_kernels(torch) -> dict:
             failures.append(f"{name}: two launches differ")
     check(not failures, f"fused_irse_unit disagrees with its plain version: "
           f"{failures}")
+    k1_production_batch(torch)
 
     # device times at the main path's shapes, bf16, from CUDA graphs: the
     # two kernels in turns (two-pass, one-launch, one-launch, two-pass), the
@@ -492,6 +512,97 @@ def phase_kernels(torch) -> dict:
         K1_MMA: dict(common, ms=totals["mma_ms"],
                      max_abs_err=max_err_bf16[K1_MMA], bound_by=bound_by,
                      timed=timed)}
+
+
+def production_unit_inputs(torch, H, cin, cout, seed):
+    """``unit_inputs`` at the production batch: the weights from numpy as
+    there, x (PRODUCTION_BATCH, H, H, Cin) N(0, 1) drawn on the card (about
+    a billion values for the first unit, too many for the host's RNG)."""
+    args = unit_inputs(torch, H, H, cin, cout, 1, seed, "cuda", torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    args[0] = torch.randn((PRODUCTION_BATCH, H, H, cin), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    return args
+
+
+def k1_production_batch(torch) -> None:
+    """K1 at the production batch (``generate_latents`` encodes 256 images a
+    batch): the 256 px unit, whose x and y1 are 2^31 bytes each (offsets
+    past 32 bits), and the two 128 px shapes, bf16, against the plain
+    version with ``compare_unit``'s limits and two launches bit-identical;
+    then every unit shape's device time by CUDA events (a graph would keep
+    ten calls' outputs, gigabytes at this batch) beside the plain version,
+    the cuDNN yardstick and the bound, each with its plan."""
+    import torch.nn.functional as F
+
+    from fer_vit_tpu_torch.ops.fused_irse_unit import (
+        fused_irse_residual, fused_irse_residual_plain,
+        fused_irse_residual_sm90, plan, route)
+
+    failures = []
+    for i, (H, cin, cout, s) in enumerate(K1_PRODUCTION_CASES):
+        args = production_unit_inputs(torch, H, cin, cout, 400 + i)
+        check(route(args[0], args[3], args[5]) == K1_SM90,
+              f"batch {PRODUCTION_BATCH} {H}x{H} {cin}->{cout} not routed "
+              f"to {K1_SM90}")
+        got = fused_irse_residual(*args, stride=s)
+        again = fused_irse_residual(*args, stride=s)
+        ref = fused_irse_residual_plain(*args, stride=s)
+        torch.cuda.synchronize()
+        c = compare_unit(torch, got, ref, torch.bfloat16)
+        same = torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+        p1, p2 = plan(PRODUCTION_BATCH, H, H, cin, cout, s)
+        log(f"check {K1_SM90} bf16 batch {PRODUCTION_BATCH} {H}x{H} "
+            f"{cin}->{cout} s{s} (x {args[0].numel() * 2} bytes, plan items "
+            f"{p1['items']} | {p2['items']}): res2 err {c['res2_err']:.3e} "
+            f"(max|res2| {c['res2_scale']:.3f}) sums err {c['sums_err']:.3e} "
+            f"({c['sums_err_l1']:.3e} of L1), two launches "
+            f"{'bit-identical' if same else 'DIFFER'} "
+            f"{'ok' if c['ok'] and same else 'FAIL'}")
+        if not (c["ok"] and same):
+            failures.append(f"batch {PRODUCTION_BATCH} {H}x{H} {cin}->{cout}")
+        del args, got, again, ref
+    check(not failures, f"fused_irse_unit at batch {PRODUCTION_BATCH}: "
+          f"{failures}")
+
+    totals = dict.fromkeys(("ms", "plain_ms", "yardstick_ms", "bound_ms"),
+                           0.0)
+    for i, (H, cin, cout, s, n_units) in enumerate(IRSE50_UNIT_SHAPES):
+        args = production_unit_inputs(torch, H, cin, cout, 500 + i)
+        x, a1, b1, w1, alpha, w2, b2 = args
+        k_args = (x, a1, b1, kernel_layout(w1, torch.bfloat16), alpha,
+                  kernel_layout(w2, torch.bfloat16), b2)
+        t_k = time_ms(torch, lambda: fused_irse_residual_sm90(*k_args,
+                                                              stride=s),
+                      reps=5, warmup=1)
+        t_p = time_ms(torch, lambda: fused_irse_residual_plain(*args,
+                                                               stride=s),
+                      reps=2, warmup=1)
+        k1 = w1.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        k2 = w2.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t_y = time_ms(torch, yardstick(
+            F, x.contiguous(memory_format=torch.contiguous_format), a1, b1,
+            k1, alpha.to(torch.bfloat16), k2, b2.to(torch.bfloat16), s),
+            reps=3, warmup=1)
+        bound = max(unit_bound_ms(PRODUCTION_BATCH, H, H, cin, cout, s))
+        for k, v in (("ms", t_k), ("plain_ms", t_p), ("yardstick_ms", t_y),
+                     ("bound_ms", bound)):
+            totals[k] += n_units * v
+        cut = unit_plan_text(K1_SM90, H, H, cin, cout, s, None,
+                             PRODUCTION_BATCH)
+        log(f"time {K1_SM90} bf16 batch {PRODUCTION_BATCH} {H}x{H} "
+            f"{cin}->{cout} s{s}, device ms per call by CUDA events: kernel "
+            f"{t_k:.4f} ({cut}), "
+            f"plain {t_p:.4f}, cudnn yardstick {t_y:.4f}, bound "
+            f"{bound:.4f}; {t_k / bound:.2f}x bound, {t_k / t_y:.2f}x "
+            f"yardstick")
+        del args, k_args, x
+    log(f"time {K1_SM90} per forward (24 units, batch {PRODUCTION_BATCH}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in totals.items())
+        + f"; {totals['ms'] / totals['bound_ms']:.2f}x bound")
+    torch.cuda.empty_cache()
 
 
 def attention_inputs(torch, B, H, L, dh, seed, device, dtype, packed=False,
@@ -680,6 +791,7 @@ def main() -> int:
     image = phase_image_slice(torch, dev_info)
     for name in ("flash_attention_sm90", "flash_attention"):
         launches[name] = image[name]
+    print(json.dumps(phase_production(torch, dev_info)))
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
@@ -1173,6 +1285,411 @@ def phase_image_slice(torch, dev_info) -> dict:
           "image slice: f32 card run disagrees with the CPU f32 run")
     return launches
 
+
+
+# -- phase 5: latent production and training ---------------------------------
+
+# A class-structured face directory made from the seed: 7 classes of 64
+# train and 16 val images at 256 px, written as PNGs by the standard library
+# (zlib, struct) so that writing needs no image package.
+PROD_TRAIN_PER_CLASS = 64
+PROD_VAL_PER_CLASS = 16
+PROD_SIZE = 256
+# w+ checks: 8 images through the CPU f32 encoder and through the card at
+# the serving batch (16, padded), each against the production batch's w+,
+# within the latent slice's BF16_W_RTOL.
+PROD_CHECK_IMAGES = 8
+# Training: the CLI's defaults but 3 epochs (batch 64, dropout 0.1, mixup
+# 1.0, plateau, bf16). Then the harness's determinism check: 5 steps at
+# batch 64 with dropout 0 and fixed mixup draws, on the card in f32 (TF32
+# off) and in bf16 against the CPU in f32, each step from the CPU's state
+# (``determinism_runs``: run freely, AdamW turns rounding noise into
+# parameter differences of about lr and the f32 losses part by up to 6.8e-5
+# at step 4; in lockstep, or at lr 0, they stay within 2e-7; read on an
+# H100 by scripts/production_profile.py).
+TRAIN_EPOCHS = 3
+DET_STEPS = 5
+DET_BATCH = 64
+# f32 card vs f32 CPU: the same steps in other summation orders; each
+# step's loss within 1e-5 relative and its gradients within 1e-4 relative
+# L2 over all parameters (read on an H100 in lockstep: 1.0e-7 and 5.2e-5).
+# Parameters are not compared: AdamW's first updates are about
+# lr * sign(g).
+DET_F32_LOSS_RTOL = 1e-5
+DET_F32_GRAD_RTOL = 1e-4
+# bf16 card vs f32 CPU, each step's loss (relative; read in lockstep:
+# 1.3e-3).
+DET_BF16_LOSS_RTOL = 2e-2
+
+
+def write_png(path, img) -> None:
+    """(H, W, 3) uint8 as an 8-bit RGB PNG, from zlib and struct alone."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_face_dirs(root: Path, seed: int = 8) -> dict:
+    """train/ and val/ class dirs of seeded 256 px images: smooth blocks of
+    colour (16 x 16 blocks, so the PNGs stay small) with pixel noise."""
+    from fer_vit_tpu_torch import EMOTION_NAMES
+
+    rng = np.random.default_rng(seed)
+    dirs = {}
+    for split, n in (("train", PROD_TRAIN_PER_CLASS),
+                     ("val", PROD_VAL_PER_CLASS)):
+        for cls in EMOTION_NAMES:
+            d = root / split / cls
+            d.mkdir(parents=True)
+            for i in range(n):
+                base = rng.integers(0, 256, (16, 16, 3))
+                img = np.repeat(np.repeat(base, 16, 0), 16, 1)
+                img = np.clip(img + rng.integers(-8, 9, img.shape), 0, 255)
+                write_png(d / f"face_{i:03d}.png", img.astype(np.uint8))
+        dirs[split] = root / split
+    return dirs
+
+
+def kernel_counts() -> dict:
+    from fer_vit_tpu_torch.ops import flash_attention, fused_irse_unit
+
+    return {**fused_irse_unit.fused_irse_residual.kernel_launches,
+            **flash_attention.fused_attention.kernel_launches}
+
+
+def reset_kernel_counts() -> None:
+    from fer_vit_tpu_torch.ops import flash_attention, fused_irse_unit
+
+    fused_irse_unit.reset_launch_counts()
+    flash_attention.reset_launch_counts()
+
+
+def phase_production(torch, dev_info) -> dict:
+    import tempfile
+
+    from fer_vit_tpu_torch.data import generate_latents as gen
+    from fer_vit_tpu_torch.data import native_decode
+    from fer_vit_tpu_torch.encoders.psp import (EncoderWrapper,
+                                                preprocess_images)
+    from fer_vit_tpu_torch.interop.from_jax import psp_state_dict_from_jax
+
+    decoder = ("native (g++, libjpeg, libpng)" if native_decode.available()
+               else "PIL (the native decoder did not build)")
+    log(f"production: image decoder {decoder}")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        dirs = write_face_dirs(root)
+        n_png = 7 * (PROD_TRAIN_PER_CLASS + PROD_VAL_PER_CLASS)
+        log(f"production: wrote {n_png} PNGs of {PROD_SIZE} px in "
+            f"{time.perf_counter() - t0:.1f} s")
+        psp_sd = psp_state_dict_from_jax(psp_jax_variables())
+        enc = EncoderWrapper(psp_sd)
+        check(enc.device.type == "cuda", f"encoder on {enc.device}")
+
+        # warm the encoder at the production batch (cuDNN, weight casts),
+        # with its peak memory
+        zeros = torch.zeros((PRODUCTION_BATCH, PROD_SIZE, PROD_SIZE, 3),
+                            device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        size = enc.encoder.input_size
+        with torch.inference_mode():
+            enc.encoder(preprocess_images(zeros, size=size))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+
+        # the main path: generate_latents on train/ and val/, the encoder
+        # injected; 448 train images (256 + a partial 192) and 112 val (one
+        # partial batch)
+        out = {split: root / f"latents_{split}" for split in dirs}
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        n_new = {split: gen.generate_latents(str(dirs[split]),
+                                             str(out[split]), encoder=enc,
+                                             batch_size=PRODUCTION_BATCH)
+                 for split in dirs}
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = kernel_counts()
+        n_img = sum(n_new.values())
+        n_batches = sum(-(-n // PRODUCTION_BATCH) for n in n_new.values())
+        log(f"production: {n_new} images in {n_batches} batches of "
+            f"{PRODUCTION_BATCH}, launches {launches}, {elapsed:.3f} s")
+        check(n_new == {"train": 7 * PROD_TRAIN_PER_CLASS,
+                        "val": 7 * PROD_VAL_PER_CLASS},
+              f"images encoded {n_new}")
+        check(launches == {K1_SM90: 24 * n_batches, K1_MMA: 0,
+                           "flash_attention_sm90": 0, "flash_attention": 0},
+              f"production launches {launches}, expected {24 * n_batches} "
+              f"{K1_SM90} and none of the other kernels")
+
+        # the packs, their labels and paths, the manifest; a re-run encodes
+        # nothing
+        for split, per_class in (("train", PROD_TRAIN_PER_CLASS),
+                                 ("val", PROD_VAL_PER_CLASS)):
+            files = sorted(f.name for f in out[split].iterdir())
+            check(files == ["latents_pack_0000.npz", "manifest.json"],
+                  f"{split} output files {files}")
+            items = gen.collect_images(str(dirs[split]))
+            with np.load(out[split] / "latents_pack_0000.npz") as z:
+                lat, lab, paths = z["latents"], z["labels"], z["paths"]
+            check(lat.shape == (7 * per_class, 18, 512)
+                  and lat.dtype == np.float32 and bool(np.isfinite(lat).all()),
+                  f"{split} latents {lat.shape} {lat.dtype}")
+            check(lab.tolist() == [l for _, l in items]
+                  and paths.tolist() == [p for p, _ in items],
+                  f"{split} labels or paths out of order")
+            manifest = json.loads((out[split] / "manifest.json").read_text())
+            check(manifest == {"processed": sorted(p for p, _ in items),
+                               "next_shard": 1},
+                  f"{split} manifest {str(manifest)[:200]}")
+            again = gen.generate_latents(str(dirs[split]), str(out[split]),
+                                         encoder=enc,
+                                         batch_size=PRODUCTION_BATCH)
+            check(again == 0, f"{split} resume encoded {again} images")
+
+        # throughput: the train split again from scratch (warm), then the
+        # encoder alone per batch of 256 (CUDA events)
+        t0 = time.perf_counter()
+        gen.generate_latents(str(dirs["train"]), str(root / "again"),
+                             encoder=enc, batch_size=PRODUCTION_BATCH)
+        torch.cuda.synchronize()
+        rate = 7 * PROD_TRAIN_PER_CLASS / (time.perf_counter() - t0)
+        with torch.inference_mode():
+            x = preprocess_images(zeros, size=size)
+            enc_ms = time_ms(torch, lambda: enc.encoder(x), reps=3, warmup=1)
+        log(f"production throughput on {dev_info['card']}: {rate:.2f} "
+            f"images/s through generate_latents (decode by "
+            f"{decoder.split()[0]} overlapped, batch {PRODUCTION_BATCH}, "
+            f"bf16); pSp encoder "
+            f"{enc_ms:.1f} ms per batch of {PRODUCTION_BATCH} (CUDA events), "
+            f"{1e3 * PRODUCTION_BATCH / enc_ms:.1f} images/s; encoder peak "
+            f"memory {peak / 2**30:.2f} GiB above its weights")
+        del zeros, x
+
+        # w+ of 8 images: the CPU f32 encoder and the card at the serving
+        # batch, each against the production batch's w+
+        items = gen.collect_images(str(dirs["train"]))
+        pick = np.linspace(0, len(items) - 1, PROD_CHECK_IMAGES).astype(int)
+        imgs = np.stack([gen._load_image(items[k][0]) for k in pick])
+        with np.load(out["train"] / "latents_pack_0000.npz") as z:
+            w_prod = torch.from_numpy(z["latents"][pick])
+        cpu = EncoderWrapper(psp_sd, dtype=torch.float32, device="cpu")
+        t0 = time.perf_counter()
+        w_cpu = cpu.encode_batch(imgs)
+        log(f"production: CPU f32 reference on {PROD_CHECK_IMAGES} images in "
+            f"{time.perf_counter() - t0:.1f} s")
+        padded = np.concatenate([imgs, np.zeros_like(imgs)])
+        w_16 = enc.encode_batch(padded)[:PROD_CHECK_IMAGES].cpu()
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        d_cpu, d_16 = rel(w_prod, w_cpu), rel(w_prod, w_16)
+        log(f"production: w+ at batch {PRODUCTION_BATCH} (card bf16) vs CPU "
+            f"f32: relative L2 {d_cpu:.3e}; vs the card at batch "
+            f"{SLICE_BATCH}: {d_16:.3e} (tol {BF16_W_RTOL})")
+        check(d_cpu <= BF16_W_RTOL and d_16 <= BF16_W_RTOL,
+              "production w+ disagrees with the CPU f32 encoder or the "
+              "serving batch")
+
+        train = phase_training(torch, dev_info, root, out)
+    return {"production": {"batches": n_batches, "images": n_img,
+                           "launches": launches},
+            "training": {"launches": train["launches"]}}
+
+
+def phase_training(torch, dev_info, root: Path, packs: dict) -> dict:
+    from fer_vit_tpu_torch.train import harness as harness_mod
+    from fer_vit_tpu_torch.train import train_latent_vit
+
+    # the CLI with its defaults but 3 epochs; each epoch's wall time taken
+    # around the harness's train_epoch (synchronised)
+    argv = ["--latent_train_dir", str(packs["train"]), "--latent_val_dir",
+            str(packs["val"]), "--epochs", str(TRAIN_EPOCHS),
+            "--experiments_dir", str(root / "experiments")]
+    args = train_latent_vit.build_parser().parse_args(argv)
+    epoch_s = []
+    run_epoch = harness_mod.Harness.train_epoch
+
+    def timed_epoch(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_epoch(self, *a, **kw)
+        torch.cuda.synchronize()
+        epoch_s.append(time.perf_counter() - t0)
+        return res
+
+    reset_kernel_counts()
+    harness_mod.Harness.train_epoch = timed_epoch
+    try:
+        res = train_latent_vit.main(args)
+    finally:
+        harness_mod.Harness.train_epoch = run_epoch
+    launches = kernel_counts()
+    log(f"training: launches {launches}")
+    check(not any(launches.values()),
+          f"LatentViT training launched kernels {launches} (19 tokens are "
+          f"below the fused attention's threshold; no K1 in training)")
+    hist = res["history"]
+    check(len(hist) == TRAIN_EPOCHS
+          and all(math.isfinite(v) for h in hist for v in h.values()),
+          f"training history {hist}")
+    n = 7 * PROD_TRAIN_PER_CLASS
+    steps = -(-n // args.batch_size)
+    for e, (h, t) in enumerate(zip(hist, epoch_s), 1):
+        log(f"training epoch {e} on {dev_info['card']}: {steps / t:.2f} "
+            f"steps/s, {n / t:.1f} samples/s (batch {args.batch_size}, "
+            f"{steps} steps, {t:.3f} s), train_loss {h['train_loss']:.4f}, "
+            f"val_loss {h['val_loss']:.4f}, val_f1 {h['val_f1']:.4f}")
+    # the experiment-dir contract
+    run = Path(res["experiment_path"])
+    check(run.parent.parent == root / "experiments"
+          and run.parent.name.startswith("latent_vit_d6_h8_do0.1_lr0.0001_"
+                                         "bs64_ep3_Mixup1.0")
+          and run.parent.name.endswith("_frac100"),
+          f"experiment dir {run}")
+    config = json.loads((run / "config.json").read_text())
+    check(config["model"]["depth"] == 6 and config["training"]["mixup"]
+          == 1.0 and config["data"]["train_samples_used"] == n,
+          f"config {config}")
+    tags = [json.loads(line)["tag"] for line in
+            (run / "logs" / "scalars.jsonl").read_text().splitlines()]
+    want = ["train_loss", "train_acc", "train_f1", "val_loss", "val_acc",
+            "val_f1", "Learning_Rate/Group_0"] * TRAIN_EPOCHS
+    check(tags == want, f"scalar tags {tags}")
+    summary = json.loads((run / "experiment_summary.json").read_text())
+    check(set(summary) == {"experiment_name", "run_id", "duration_seconds",
+                           "final_metrics", "config"}
+          and "best_f1_macro" in summary["final_metrics"],
+          f"summary keys {sorted(summary)}")
+    ckpt = torch.load(run / "checkpoints" / "last_model.pt",
+                      weights_only=True)
+    check(set(ckpt) == {"epoch", "state", "metrics", "config", "run_id",
+                        "scheduler_state"} and ckpt["epoch"] == TRAIN_EPOCHS,
+          f"checkpoint keys {sorted(ckpt)}")
+    check((run / "checkpoints" / "best_model.pt").exists()
+          == (res["best_f1"] > 0), "best_model.pt against best F1")
+    check((run / "logs" / f"confusion_epoch{TRAIN_EPOCHS}.npy").exists(),
+          "no final confusion matrix")
+    log(f"training: experiment dir {run.relative_to(root)} ok, best val F1 "
+        f"{res['best_f1']:.4f}")
+
+    determinism_check(torch, packs["train"])
+    return {"launches": launches}
+
+
+def determinism_runs(torch, latents, labels, lr: float = 1e-4,
+                     lockstep: bool = True) -> dict:
+    """DET_STEPS train steps of the full-width LatentViT from seeded
+    JAX-layout weights at batch DET_BATCH, dropout 0, the batches and mixup
+    draws made once from a seed: on the CPU in f32 and on the card in f32
+    and in bf16. Per run: the loss of each step and each step's gradients
+    (flattened, on the host).
+
+    ``lockstep``: each card run takes the CPU's parameters and AdamW state
+    before every step, so that each step is compared from the same state.
+    Run freely, the runs part after the first step: AdamW moves every
+    parameter by about lr * sign(g) at first, so a gradient within rounding
+    noise of 0 (each attention's key bias has an exact gradient of 0)
+    moves by lr with either sign (``scripts/production_profile.py`` shows
+    both)."""
+    from fer_vit_tpu_torch.interop.from_jax import (
+        latent_vit_state_dict_from_jax)
+    from fer_vit_tpu_torch.models import LatentViT
+    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
+
+    sd = latent_vit_state_dict_from_jax(latent_vit_jax_params())
+    cfg = TrainConfig(batch_size=DET_BATCH)  # mixup 1.0, smoothing 0.1
+    rng = np.random.default_rng(11)
+    batches = []
+    for _ in range(DET_STEPS):
+        idx = rng.choice(len(latents), DET_BATCH, replace=False)
+        batches.append((latents[idx], labels[idx].astype(np.int64),
+                        float(np.float32(rng.beta(1.0, 1.0))),
+                        rng.permutation(DET_BATCH)))
+    runs = {}
+    for name, device, dtype in (("cpu", "cpu", torch.float32),
+                                ("f32", None, torch.float32),
+                                ("bf16", None, None)):
+        model = LatentViT(dropout=0.0, dtype=dtype)
+        model.load_state_dict(sd, strict=True)
+        h = Harness(model=model, cfg=cfg, device=device)
+        runs[name] = {"harness": h, "state": h.init_state(), "loss": [],
+                      "grads": []}
+    for x, y, lam, perm0 in batches:
+        # a copy: the CPU's step below updates its tensors in place
+        start = copy.deepcopy(runs["cpu"]["state"].state_dict())
+        for name, run in runs.items():
+            h, state = run["harness"], run["state"]
+            if lockstep and name != "cpu":
+                state.load_state_dict(start)
+            dev = h.device
+            stats = h.train_step(
+                state, torch.from_numpy(x).to(dev),
+                torch.from_numpy(y).to(dev),
+                torch.ones(DET_BATCH, dtype=torch.bool, device=dev),
+                lr, lam, torch.from_numpy(perm0).to(dev))
+            run["loss"].append(float(stats["loss_sum"]) / DET_BATCH)
+            run["grads"].append(torch.cat(
+                [p.grad.float().flatten().cpu()
+                 for p in state.model.parameters()]))
+    return {k: {"loss": np.asarray(v["loss"]), "grads": v["grads"]}
+            for k, v in runs.items()}
+
+
+def determinism_errors(runs: dict, name: str):
+    """Per step: the loss's relative error and the gradients' relative L2
+    error of run ``name`` against the CPU's."""
+    ref = runs["cpu"]
+    d_loss = np.abs(runs[name]["loss"] / ref["loss"] - 1)
+    d_grad = np.asarray([float((g - r).norm() / r.norm()) for g, r in
+                         zip(runs[name]["grads"], ref["grads"])])
+    return d_loss, d_grad
+
+
+def determinism_check(torch, train_dir: Path) -> None:
+    """The harness on the card against the CPU, on the produced packs, in
+    lockstep (each step from the CPU's state)."""
+    from fer_vit_tpu_torch.data.latent_store import LatentStore
+
+    store = LatentStore.load(str(train_dir))
+    t0 = time.perf_counter()
+    runs = determinism_runs(torch, store.latents, store.labels)
+    ref_l = runs["cpu"]["loss"]
+    d_f32, g_f32 = determinism_errors(runs, "f32")
+    d_b16, g_b16 = determinism_errors(runs, "bf16")
+    log(f"training determinism ({DET_STEPS} steps in lockstep, batch "
+        f"{DET_BATCH}, dropout 0, fixed mixup draws; "
+        f"{time.perf_counter() - t0:.1f} s): "
+        f"CPU f32 losses {np.round(ref_l, 6).tolist()}")
+    for name, d, g in (("f32", d_f32, g_f32), ("bf16", d_b16, g_b16)):
+        log(f"training determinism: card {name} vs CPU f32 per step: loss "
+            f"relative error {[f'{v:.3e}' for v in d]}, gradient relative "
+            f"L2 {[f'{v:.3e}' for v in g]}")
+    log(f"training determinism: card f32 loss max {d_f32.max():.3e} (tol "
+        f"{DET_F32_LOSS_RTOL}), gradients max {g_f32.max():.3e} (tol "
+        f"{DET_F32_GRAD_RTOL}); card bf16 loss max {d_b16.max():.3e} (tol "
+        f"{DET_BF16_LOSS_RTOL})")
+    check(bool(np.isfinite(ref_l).all())
+          and d_f32.max() <= DET_F32_LOSS_RTOL
+          and g_f32.max() <= DET_F32_GRAD_RTOL
+          and d_b16.max() <= DET_BF16_LOSS_RTOL,
+          "training steps on the card disagree with the CPU")
 
 if __name__ == "__main__":
     try:

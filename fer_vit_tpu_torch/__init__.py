@@ -13,9 +13,18 @@ Package map:
 * :mod:`fer_vit_tpu_torch.nn`       — transformer layers and initializers
 * :mod:`fer_vit_tpu_torch.models`   — LatentViT and ImageViT
 * :mod:`fer_vit_tpu_torch.encoders` — pSp GradualStyleEncoder over IR-SE50
-* :mod:`fer_vit_tpu_torch.data`     — the image route's eval normalisation
+* :mod:`fer_vit_tpu_torch.data`     — the image route's eval normalisation,
+  latent production (``generate_latents``, the native image decoder), the
+  latent store, latent augmentation and splits
+* :mod:`fer_vit_tpu_torch.train`    — losses, schedulers, the training
+  harness and fit loop, the ``train_latent_vit`` CLI
+* :mod:`fer_vit_tpu_torch.utils`    — metrics and the experiment-dir logger
 * :mod:`fer_vit_tpu_torch.interop`  — weights from the JAX package's variables
 * :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent and image routes)
+
+Command-line entry points (CUDA; ``main(args, device="cpu")`` from Python
+for the CPU): ``python -m fer_vit_tpu_torch.data.generate_latents`` and
+``python -m fer_vit_tpu_torch.train.train_latent_vit``.
 """
 
 __version__ = "0.1.0"

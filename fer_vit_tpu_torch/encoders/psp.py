@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -286,3 +286,27 @@ class EncoderWrapper:
     def encode_image(self, image) -> torch.Tensor:
         """(H, W, 3) image -> (18, 512)."""
         return self.encode_batch(torch.as_tensor(image)[None])[0]
+
+
+def psp_state_dict_from_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A pSp ``.pt`` checkpoint's encoder as an unfused :class:`PSpEncoder`
+    state dict: its ``encoder.*`` entries (under ``state_dict`` or at the
+    top level) with the prefix dropped, and its ``latent_avg``, tiled to
+    (n_styles, D) when it is one (D,) vector and zeros when absent, as
+    ``fer_vit_tpu/encoders/convert_psp.py::convert_checkpoint`` reads it.
+    The port's modules carry the third-party names, so nothing is renamed."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    raw = ckpt.get("state_dict", ckpt)
+    sd = {k[len("encoder."):]: v.float() if v.is_floating_point() else v
+          for k, v in raw.items() if k.startswith("encoder.")}
+    n_styles = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("styles."))
+    latent_avg = ckpt.get("latent_avg")
+    if latent_avg is None:
+        latent_avg = torch.zeros(n_styles,
+                                 sd["styles.0.linear.weight"].shape[0])
+    latent_avg = latent_avg.float()
+    if latent_avg.dim() == 1:
+        latent_avg = latent_avg[None].repeat(n_styles, 1)
+    sd["latent_avg"] = latent_avg
+    return sd

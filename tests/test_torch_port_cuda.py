@@ -3,7 +3,11 @@ against their plain version at the IR-SE50 unit shapes and the edge cases of
 ``chip_smoke.py``, the fused attention's two kernels
 at the image slice's shape and the edge and boundary cases of
 ``chip_smoke.py``, in f32 and bf16; which kernel each shape takes,
-determinism, the launch counts and the wrappers' device-side checks. Marked
+determinism, the launch counts and the wrappers' device-side checks; then
+the latent production and training slice: the fused unit at
+``generate_latents``' batch of 256, the training harness's f32 steps on the
+card against the CPU, and ``generate_latents`` on a few images with its
+launch counts. Marked
 ``cuda``; they skip without a CUDA device. This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed::
@@ -259,3 +263,101 @@ def test_attention_wrapper_checks_cuda_inputs(smoke):
         fused_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
     with pytest.raises(ValueError, match="no kernel for device"):
         fused_attention(*(t.to("meta") for t in (q, k, v)))
+
+
+# -- slice 2: latent production and training ----------------------------------
+
+
+def test_k1_at_the_production_batch(smoke):
+    """The 256 px unit at generate_latents' batch of 256: x and y1 are 2^31
+    bytes each, so any offset reckoned in 32 bits would wrap."""
+    H, cin, cout, stride = smoke.K1_PRODUCTION_CASES[0]
+    args = smoke.production_unit_inputs(torch, H, cin, cout, 400)
+    assert args[0].numel() * args[0].element_size() == 2 ** 31
+    assert fu.route(args[0], args[3], args[5]) == fu.SM90
+    got = fused_irse_residual(*args, stride=stride)
+    again = fused_irse_residual(*args, stride=stride)
+    ref = fused_irse_residual_plain(*args, stride=stride)
+    torch.cuda.synchronize()
+    res = smoke.compare_unit(torch, got, ref, torch.bfloat16)
+    assert res["ok"], res
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_harness_f32_steps_on_the_card_match_the_cpu(smoke):
+    """Three train steps of a LatentViT (depth 2, 128 wide, dropout 0) with
+    the same mixup draws: the card in f32 (TF32 off) against the CPU in
+    f32, the loss per step within 1e-5 relative, the first step's gradients
+    within 1e-4 relative L2."""
+    import numpy as np
+
+    from fer_vit_tpu_torch.models import LatentViT
+    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    init = LatentViT(latent_dim=64, embed_dim=128, depth=2, heads=4,
+                     mlp_dim=256, dropout=0.0,
+                     generator=torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(1)
+    steps = [(rng.normal(size=(32, 18, 64)).astype(np.float32),
+              rng.integers(0, 7, 32), float(np.float32(rng.beta(1, 1))),
+              rng.permutation(32)) for _ in range(3)]
+
+    def run(device):
+        model = LatentViT(latent_dim=64, embed_dim=128, depth=2, heads=4,
+                          mlp_dim=256, dropout=0.0, dtype=torch.float32)
+        model.load_state_dict(init)
+        h = Harness(model=model, cfg=TrainConfig(batch_size=32),
+                    device=device)
+        state = h.init_state()
+        losses, grads = [], None
+        for x, y, lam, perm0 in steps:
+            stats = h.train_step(
+                state, torch.from_numpy(x).to(device),
+                torch.from_numpy(y).to(device),
+                torch.ones(32, dtype=torch.bool, device=device), 1e-4, lam,
+                torch.from_numpy(perm0).to(device))
+            losses.append(float(stats["loss_sum"]) / 32)
+            if grads is None:
+                grads = torch.cat([p.grad.flatten().cpu()
+                                   for p in model.parameters()])
+        return np.asarray(losses), grads
+
+    ref_l, ref_g = run("cpu")
+    got_l, got_g = run("cuda")
+    assert np.abs(got_l / ref_l - 1).max() <= 1e-5, (got_l, ref_l)
+    assert float((got_g - ref_g).norm() / ref_g.norm()) <= 1e-4
+
+
+def test_generate_latents_on_the_card(smoke, tmp_path):
+    """A handful of PNGs through generate_latents with the full-size pSp
+    (random weights) at batch 8: two batches, 24 launches of the two-pass
+    kernel each and none of the other kernels; one pack, in order."""
+    import numpy as np
+
+    from fer_vit_tpu_torch.data.generate_latents import (collect_images,
+                                                         generate_latents)
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.ops import flash_attention
+
+    rng = np.random.default_rng(2)
+    for cls in ("angry", "happy", "sad"):
+        (tmp_path / "data" / cls).mkdir(parents=True)
+        for i in range(4):
+            smoke.write_png(tmp_path / "data" / cls / f"im{i}.png",
+                            rng.integers(0, 256, (64, 64, 3), np.uint8))
+    enc = EncoderWrapper(seed=0)
+    fu.reset_launch_counts()
+    reset_launch_counts()
+    n = generate_latents(str(tmp_path / "data"), str(tmp_path / "out"),
+                         encoder=enc, batch_size=8)
+    torch.cuda.synchronize()
+    assert n == 12
+    assert fused_irse_residual.kernel_launches == {fu.SM90: 48, fu.MMA: 0}
+    assert flash_attention.fused_attention.launches == 0
+    with np.load(tmp_path / "out" / "latents_pack_0000.npz") as z:
+        assert z["latents"].shape == (12, 18, 512)
+        assert np.isfinite(z["latents"]).all()
+        items = collect_images(str(tmp_path / "data"))
+        assert z["paths"].tolist() == [p for p, _ in items]
+        assert z["labels"].tolist() == [l for _, l in items]

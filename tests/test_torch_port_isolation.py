@@ -32,7 +32,12 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     for m in ("ops.fused_irse_unit", "ops.flash_attention", "serve",
-              "models.image_vit", "data.image_pipeline", "nn.initializers"):
+              "models.image_vit", "data.image_pipeline", "nn.initializers",
+              "utils.metrics", "utils.experiment_logger", "train.losses",
+              "train.schedulers", "train.harness", "train.loop",
+              "train.cli_common", "train.train_latent_vit", "data.splits",
+              "data.latent_augment", "data.latent_store",
+              "data.native_decode", "data.generate_latents"):
         assert f"fer_vit_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -72,9 +77,12 @@ def test_sources_import_no_jax_and_no_jax_package():
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():
     from fer_vit_tpu_torch.core.dtypes import compute_dtype, resolve_device
+    from fer_vit_tpu_torch.data import generate_latents
     from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
-    from fer_vit_tpu_torch.models import ImageViT
+    from fer_vit_tpu_torch.models import ImageViT, LatentViT
     from fer_vit_tpu_torch.serve import Predictor
+    from fer_vit_tpu_torch.train import train_latent_vit
+    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -85,6 +93,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
                            heads=2, mlp_dim=32), image_route=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Harness(model=LatentViT(latent_dim=8, embed_dim=8, depth=1, heads=2,
+                                mlp_dim=8), cfg=TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_latent_vit.main(train_latent_vit.build_parser().parse_args(
+            ["--latent_train_dir", "x", "--latent_val_dir", "y"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate_latents.main(generate_latents.build_parser().parse_args(
+            ["--data_root", "x", "--latent_out", "y", "--encoder_model",
+             "z"]))
     assert resolve_device("cpu").type == "cpu"
     assert compute_dtype(torch.device("cpu")) == torch.float32
     assert compute_dtype(torch.device("cuda")) == torch.bfloat16
@@ -156,3 +174,25 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=""))
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_chip_smoke_png_writer_round_trips_through_pil(tmp_path):
+    """Phase 5 writes its face directory with the standard library alone;
+    PIL (the decoder ``generate_latents`` falls back to) reads back the
+    same pixels, and the production constants are the pipeline's."""
+    import numpy as np
+    from PIL import Image
+
+    from fer_vit_tpu_torch.data import generate_latents
+
+    smoke = _chip_smoke()
+    img = np.random.default_rng(0).integers(0, 256, (37, 23, 3), np.uint8)
+    smoke.write_png(tmp_path / "x.png", img)
+    with Image.open(tmp_path / "x.png") as im:
+        assert im.mode == "RGB"
+        np.testing.assert_array_equal(np.asarray(im), img)
+    assert smoke.PRODUCTION_BATCH == generate_latents.build_parser(
+        ).get_default("batch_size") == 256
+    shapes = {(h, cin, cout, s) for h, cin, cout, s, _ in
+              smoke.IRSE50_UNIT_SHAPES}
+    assert set(smoke.K1_PRODUCTION_CASES) <= shapes

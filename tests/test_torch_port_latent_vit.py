@@ -98,3 +98,33 @@ def test_layers_start_identical_and_init_is_seeded():
     l0, l1 = a.transformer.layers
     for p0, p1 in zip(l0.parameters(), l1.parameters()):
         assert torch.equal(p0, p1) and p0.data_ptr() != p1.data_ptr()
+
+
+def test_attention_dropout_drops_weights_not_outputs():
+    """Attention dropout acts on the softmax weights, scaled by 1/(1-p), as
+    in ``fer_vit_tpu/ops/attention.py`` (and ``torch.nn.MultiheadAttention``).
+    With V = [I | 1], the first L output columns are the dropped weights and
+    the last is their sum, which dropout on the outputs would not give."""
+    p, length = 0.5, 12
+    rng = np.random.default_rng(7)
+    q, k = (torch.from_numpy(rng.normal(size=(2, 3, length, 8))
+                             .astype(np.float32)) for _ in range(2))
+    eye_ones = torch.cat([torch.eye(length), torch.ones(length, 1)], dim=1)
+    v = eye_ones.expand(2, 3, length, length + 1)
+    weights = torch.softmax(q @ k.transpose(-1, -2) / np.sqrt(8), dim=-1)
+    torch.manual_seed(0)
+    out = dot_product_attention(q, k, v, dropout_p=p, training=True)
+    dropped, sums = out[..., :length], out[..., length]
+    kept = dropped != 0
+    assert 0.3 < float(kept.float().mean()) < 0.7
+    torch.testing.assert_close(dropped[kept], weights[kept] / (1 - p),
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(sums, dropped.sum(dim=-1), rtol=1e-5,
+                               atol=1e-6)
+    assert float((sums - 1 / (1 - p)).abs().max()) > 0.1
+    # eval mode, or p = 0: the weights themselves
+    for kw in (dict(dropout_p=p, training=False), dict(dropout_p=0.0,
+                                                        training=True)):
+        torch.testing.assert_close(
+            dot_product_attention(q, k, v, **kw)[..., :length], weights,
+            rtol=1e-6, atol=1e-7)
