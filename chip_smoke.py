@@ -22,8 +22,10 @@ Phases, in order; any failure exits non-zero before the result line:
    (``fused_irse_unit``, the rest: f32, other channel counts) on the same
    cases, and the two-pass kernel's passes timed alone too. Then the fused
    attention (K2): its TMA/wgmma kernel (``flash_attention_sm90``, bf16 up
-   to L = 256) and the streaming one (``flash_attention``, the rest), and
-   the wrapper's host-timed ms.
+   to L = 256) and the streaming one (``flash_attention``, the rest), at
+   ViT-Base's and ViT-Small's shapes, with a bf16 training forward (qkv
+   requiring grad; output and gradient against plain autograd), and the
+   wrapper's host-timed ms.
 3. latent slice: ``EncoderWrapper`` (pSp over IR-SE50, 256 px, BN folded,
    fused residual units, bf16) feeds ``LatentViT`` (depth 6, 512 wide)
    behind ``Predictor``.
@@ -40,6 +42,27 @@ Phases, in order; any failure exits non-zero before the result line:
    finite losses, steps/s and samples/s per epoch, no kernel launched), and
    5 harness steps with fixed draws compare the card in f32 and bf16 with
    the CPU in f32. The kernel phase checks and times K1 at that batch too.
+6. ImageViT training: ``train_image_vit.main`` trains ViT-Small/16 at 224
+   px (batch 32, dropout 0, augmentation on the device) for 2 epochs on
+   phase 5's face directory: exactly 12 ``flash_attention_sm90`` launches
+   per training forward and per eval batch (counted from the data sizes)
+   and none of the other kernels, the experiment-dir contract, finite
+   losses, steps/s and samples/s per epoch (between the trainer's own
+   "Epoch e/N" lines); then 3 harness steps with fixed augmentation draws compare the
+   card in f32 and bf16 with the CPU in f32, in lockstep.
+7. serving the checkpoints: the seeded pSp weights written as the JAX
+   package's ``.npz``; the val images packed by ``python -m
+   fer_vit_tpu_torch.data.image_packs`` at 256 and 224 px; ``predict_main``
+   (batch 64, top 3) on phase 5's LatentViT ``best_model.pt`` (latent
+   route, ``--psp_weights``) and phase 6's (image route), each with
+   ``--input`` and with ``--packed``: 24 ``fused_irse_unit_sm90`` launches
+   per latent batch, 12 ``flash_attention_sm90`` per image batch, none of
+   the others; files, packs and ``Predictor.predict`` on the decoded
+   arrays bit-identical; rows finite and summing to 1; the card in bf16 and
+   f32 against the CPU in f32 on 14 images, through each trained
+   checkpoint and through a seeded one whose outputs depend on the input;
+   images/s on files and on packs; a corrupt
+   file in a separate input directory flagged and listed.
 
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
@@ -51,23 +74,28 @@ others) and the outputs, times a few full batches and splits one by
 module, and compares the card (bf16, then f32) with the same modules run
 on the CPU in f32.
 
-Before it, a JSON line gives phase 5's batches, images and launches per
-kernel, for production and for training. The line before the last is a
-JSON object listing the four kernels
+Each phase's wall seconds are logged as it ends. Before the kernels line,
+a JSON line gives the launches per kernel on each main path (the two
+serving slices, production, latent training, image training, checkpoint
+serving), phase 5's batches and images, and the phase seconds. The line
+before the last is a JSON object listing the four kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
-``flash_attention``) with their launches on the main path, times, bound
-and error; the last line is ``{"ok": true, "device": {...}}``. The script
+``flash_attention``) with their launches summed over the main paths, times,
+bound and error; the last line is ``{"ok": true, "device": {...}}``. The script
 needs a CUDA device and the repository around it; without either it exits
 non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -129,6 +157,12 @@ K1_PRODUCTION_CASES = ((256, 64, 64, 2), (128, 64, 64, 1), (128, 64, 128, 2))
 # batch 64 -> (B, heads, tokens, head dim).
 IMAGE_BATCH = 64
 ATTN_MAIN = (IMAGE_BATCH, 12, 197, 64)
+# K2 at ViT-Small/16's shapes (6 heads), from packed views: phase 6's
+# lockstep batch (16) and training batch (32), phase 7's serving batch (64).
+ATTN_SMALL = ((16, 6, 197, 64), (32, 6, 197, 64), (IMAGE_BATCH, 6, 197, 64))
+# A training forward's attention: phase 6's shape, packed views of a qkv
+# that requires grad (the autograd Function: kernel forward, plain backward).
+ATTN_TRAIN = (32, 6, 197, 64)
 # Edge cases (B, H, L, Dh), contiguous: one token; L ragged against the
 # 64-row tiles and key chunks (37, 129, 257); L at the dispatch threshold
 # (128); head dims below 64 (32, 48) and one that is not a multiple of 8
@@ -183,6 +217,23 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class EpochClock:
+    """A stdout for a trainer's run: passes its output on and notes the
+    time of each "Epoch e/N: ..." line that ``fit`` prints at the end of an
+    epoch."""
+
+    def __init__(self, out):
+        self.out, self.times = out, []
+
+    def write(self, text: str) -> int:
+        if text.startswith("Epoch "):
+            self.times.append(time.perf_counter())
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
 
 
 # -- phase 1: device and build ----------------------------------------------
@@ -665,7 +716,8 @@ def phase_attention(torch) -> dict:
     max_err_bf16 = {}
     cases = ([(ATTN_MAIN, True, 1.0)] + [(c, False, 1.0) for c in ATTN_EDGE]
              + [(c, True, 1.0) for c in ATTN_BOUNDARY]
-             + [(c, True, ATTN_WIDE_Q_SCALE) for c in ATTN_WIDE])
+             + [(c, True, ATTN_WIDE_Q_SCALE) for c in ATTN_WIDE]
+             + [(c, True, 1.0) for c in ATTN_SMALL])
     for dtype in (torch.float32, torch.bfloat16):
         for i, ((B, H, L, dh), packed, q_scale) in enumerate(cases):
             if q_scale != 1.0 and dtype == torch.float32:
@@ -712,6 +764,45 @@ def phase_attention(torch) -> dict:
     log(f"check flash_attention grad f32 (2, 2, 130, 32): max err {gerr:.3e}")
     if gerr > 1e-4:
         failures.append(f"gradient error {gerr}")
+
+    # a bf16 training forward's attention, as phase 6 runs it: packed views
+    # of a qkv that requires grad, through the autograd Function (the TMA
+    # kernel's forward, the plain version's backward), against autograd
+    # through the plain version on the same inputs and upstream gradient;
+    # outputs and the qkv gradient each held to compare_attention's bf16
+    # limits
+    B, H, L, dh = ATTN_TRAIN
+    rng = np.random.default_rng(11)
+    qkv_in = torch.from_numpy(rng.normal(size=(B, L, 3 * H * dh)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    g_out = torch.from_numpy(rng.normal(size=ATTN_TRAIN).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    train_runs = {}
+    for name, fn in ((SM90, fused_attention),
+                     ("plain", fused_attention_plain)):
+        qkv = qkv_in.clone().requires_grad_(True)
+        q, k, v = (t.reshape(B, L, H, dh).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        check(route(q, k, v) == SM90,
+              f"{ATTN_TRAIN} requiring grad routes to {route(q, k, v)}")
+        n0 = fused_attention.kernel_launches[SM90]
+        out = fn(q, k, v)
+        out.backward(g_out)
+        torch.cuda.synchronize()
+        check(fused_attention.kernel_launches[SM90] - n0
+              == (1 if name == SM90 else 0),
+              f"training forward through {name}: "
+              f"{fused_attention.kernel_launches[SM90] - n0} {SM90} launches")
+        train_runs[name] = (out.detach(), qkv.grad)
+    for what, i in (("output", 0), ("qkv gradient", 1)):
+        c = compare_attention(torch, train_runs[SM90][i],
+                              train_runs["plain"][i], torch.bfloat16)
+        log(f"check {SM90} bf16 training forward {ATTN_TRAIN} packed qkv "
+            f"requiring grad, {what} vs plain: err {c['err']:.3e} (max|ref| "
+            f"{c['scale']:.3f}, beyond 1 ulp {c['beyond_ulp']:.2e}) "
+            f"{'ok' if c['ok'] else 'FAIL'}")
+        if not c["ok"]:
+            failures.append(f"{SM90} training forward {what}")
 
     # two launches on the same inputs give the same bits, in each kernel
     q, k, v = attention_inputs(torch, *ATTN_MAIN, 9, dev, torch.bfloat16,
@@ -782,16 +873,43 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    dev_info = phase_device(torch)
-    kernels = phase_kernels(torch)
-    kernels.update(phase_attention(torch))
-    # each kernel's launches on the path that runs it
-    latent = phase_slice(torch, dev_info)
-    launches = {name: latent[name] for name in (K1_SM90, K1_MMA)}
-    image = phase_image_slice(torch, dev_info)
-    for name in ("flash_attention_sm90", "flash_attention"):
-        launches[name] = image[name]
-    print(json.dumps(phase_production(torch, dev_info)))
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        log(f"phase {name}: {seconds[name]} s")
+        return out
+
+    dev_info = timed("1 device", phase_device, torch)
+    kernels = timed("2 K1", phase_kernels, torch)
+    kernels.update(timed("2 K2", phase_attention, torch))
+    # each kernel's launches on every main path, each read just after its
+    # run with the counts set to 0 just before it
+    paths = {"latent slice": timed("3 latent slice", phase_slice, torch,
+                                   dev_info),
+             "image slice": timed("4 image slice", phase_image_slice, torch,
+                                  dev_info)}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        prod = timed("5 production and training", phase_production, torch,
+                     dev_info, root)
+        image = timed("6 image training", phase_image_training, torch,
+                      dev_info, root)
+        serving = timed("7 checkpoint serving", phase_serving, torch,
+                        dev_info, root, prod["training"]["best_model"],
+                        image["best_model"])
+    paths.update({"production": prod["production"]["launches"],
+                  "latent training": prod["training"]["launches"],
+                  "image training": image["launches"],
+                  "checkpoint serving": serving["launches"]})
+    launches = {name: sum(p[name] for p in paths.values())
+                for name in KERNEL_META}
+    print(json.dumps({"launches_by_path": paths,
+                      "production": {k: prod["production"][k]
+                                     for k in ("batches", "images")},
+                      "phase_seconds": seconds}))
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
@@ -861,10 +979,13 @@ F32_PROB_TOL = 1e-4
 F32_W_RTOL = 1e-4
 
 
+@functools.lru_cache(maxsize=None)
 def psp_jax_variables(plan=IR_SE_50_PLAN, input_size=256, style_dim=512,
                       n_styles=18, coarse_ind=3, middle_ind=7, seed=0):
     """Seeded pSp weights as a numpy tree in the JAX package's ``PSpEncoder``
-    layout (unfused): conv kernels N(0, 1/fan_in), BN near identity."""
+    layout (unfused): conv kernels N(0, 1/fan_in), BN near identity. Drawn
+    once per argument set (phases 3, 5 and 7 share the full-width tree);
+    callers read it and copy what they keep."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
 
@@ -1376,9 +1497,9 @@ def reset_kernel_counts() -> None:
     flash_attention.reset_launch_counts()
 
 
-def phase_production(torch, dev_info) -> dict:
-    import tempfile
-
+def phase_production(torch, dev_info, root: Path) -> dict:
+    """Writes the face directory under ``root`` and leaves the packs and
+    the LatentViT run there for the later phases."""
     from fer_vit_tpu_torch.data import generate_latents as gen
     from fer_vit_tpu_torch.data import native_decode
     from fer_vit_tpu_torch.encoders.psp import (EncoderWrapper,
@@ -1388,129 +1509,127 @@ def phase_production(torch, dev_info) -> dict:
     decoder = ("native (g++, libjpeg, libpng)" if native_decode.available()
                else "PIL (the native decoder did not build)")
     log(f"production: image decoder {decoder}")
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        dirs = write_face_dirs(root)
-        n_png = 7 * (PROD_TRAIN_PER_CLASS + PROD_VAL_PER_CLASS)
-        log(f"production: wrote {n_png} PNGs of {PROD_SIZE} px in "
-            f"{time.perf_counter() - t0:.1f} s")
-        psp_sd = psp_state_dict_from_jax(psp_jax_variables())
-        enc = EncoderWrapper(psp_sd)
-        check(enc.device.type == "cuda", f"encoder on {enc.device}")
+    t0 = time.perf_counter()
+    dirs = write_face_dirs(root)
+    n_png = 7 * (PROD_TRAIN_PER_CLASS + PROD_VAL_PER_CLASS)
+    log(f"production: wrote {n_png} PNGs of {PROD_SIZE} px in "
+        f"{time.perf_counter() - t0:.1f} s")
+    psp_sd = psp_state_dict_from_jax(psp_jax_variables())
+    enc = EncoderWrapper(psp_sd)
+    check(enc.device.type == "cuda", f"encoder on {enc.device}")
 
-        # warm the encoder at the production batch (cuDNN, weight casts),
-        # with its peak memory
-        zeros = torch.zeros((PRODUCTION_BATCH, PROD_SIZE, PROD_SIZE, 3),
-                            device="cuda")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        size = enc.encoder.input_size
-        with torch.inference_mode():
-            enc.encoder(preprocess_images(zeros, size=size))
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - base
+    # warm the encoder at the production batch (cuDNN, weight casts),
+    # with its peak memory
+    zeros = torch.zeros((PRODUCTION_BATCH, PROD_SIZE, PROD_SIZE, 3),
+                        device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    size = enc.encoder.input_size
+    with torch.inference_mode():
+        enc.encoder(preprocess_images(zeros, size=size))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
 
-        # the main path: generate_latents on train/ and val/, the encoder
-        # injected; 448 train images (256 + a partial 192) and 112 val (one
-        # partial batch)
-        out = {split: root / f"latents_{split}" for split in dirs}
-        reset_kernel_counts()
-        t0 = time.perf_counter()
-        n_new = {split: gen.generate_latents(str(dirs[split]),
-                                             str(out[split]), encoder=enc,
-                                             batch_size=PRODUCTION_BATCH)
-                 for split in dirs}
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t0
-        launches = kernel_counts()
-        n_img = sum(n_new.values())
-        n_batches = sum(-(-n // PRODUCTION_BATCH) for n in n_new.values())
-        log(f"production: {n_new} images in {n_batches} batches of "
-            f"{PRODUCTION_BATCH}, launches {launches}, {elapsed:.3f} s")
-        check(n_new == {"train": 7 * PROD_TRAIN_PER_CLASS,
-                        "val": 7 * PROD_VAL_PER_CLASS},
-              f"images encoded {n_new}")
-        check(launches == {K1_SM90: 24 * n_batches, K1_MMA: 0,
-                           "flash_attention_sm90": 0, "flash_attention": 0},
-              f"production launches {launches}, expected {24 * n_batches} "
-              f"{K1_SM90} and none of the other kernels")
-
-        # the packs, their labels and paths, the manifest; a re-run encodes
-        # nothing
-        for split, per_class in (("train", PROD_TRAIN_PER_CLASS),
-                                 ("val", PROD_VAL_PER_CLASS)):
-            files = sorted(f.name for f in out[split].iterdir())
-            check(files == ["latents_pack_0000.npz", "manifest.json"],
-                  f"{split} output files {files}")
-            items = gen.collect_images(str(dirs[split]))
-            with np.load(out[split] / "latents_pack_0000.npz") as z:
-                lat, lab, paths = z["latents"], z["labels"], z["paths"]
-            check(lat.shape == (7 * per_class, 18, 512)
-                  and lat.dtype == np.float32 and bool(np.isfinite(lat).all()),
-                  f"{split} latents {lat.shape} {lat.dtype}")
-            check(lab.tolist() == [l for _, l in items]
-                  and paths.tolist() == [p for p, _ in items],
-                  f"{split} labels or paths out of order")
-            manifest = json.loads((out[split] / "manifest.json").read_text())
-            check(manifest == {"processed": sorted(p for p, _ in items),
-                               "next_shard": 1},
-                  f"{split} manifest {str(manifest)[:200]}")
-            again = gen.generate_latents(str(dirs[split]), str(out[split]),
-                                         encoder=enc,
+    # the main path: generate_latents on train/ and val/, the encoder
+    # injected; 448 train images (256 + a partial 192) and 112 val (one
+    # partial batch)
+    out = {split: root / f"latents_{split}" for split in dirs}
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    n_new = {split: gen.generate_latents(str(dirs[split]),
+                                         str(out[split]), encoder=enc,
                                          batch_size=PRODUCTION_BATCH)
-            check(again == 0, f"{split} resume encoded {again} images")
+             for split in dirs}
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = kernel_counts()
+    n_img = sum(n_new.values())
+    n_batches = sum(-(-n // PRODUCTION_BATCH) for n in n_new.values())
+    log(f"production: {n_new} images in {n_batches} batches of "
+        f"{PRODUCTION_BATCH}, launches {launches}, {elapsed:.3f} s")
+    check(n_new == {"train": 7 * PROD_TRAIN_PER_CLASS,
+                    "val": 7 * PROD_VAL_PER_CLASS},
+          f"images encoded {n_new}")
+    check(launches == {K1_SM90: 24 * n_batches, K1_MMA: 0,
+                       "flash_attention_sm90": 0, "flash_attention": 0},
+          f"production launches {launches}, expected {24 * n_batches} "
+          f"{K1_SM90} and none of the other kernels")
 
-        # throughput: the train split again from scratch (warm), then the
-        # encoder alone per batch of 256 (CUDA events)
-        t0 = time.perf_counter()
-        gen.generate_latents(str(dirs["train"]), str(root / "again"),
-                             encoder=enc, batch_size=PRODUCTION_BATCH)
-        torch.cuda.synchronize()
-        rate = 7 * PROD_TRAIN_PER_CLASS / (time.perf_counter() - t0)
-        with torch.inference_mode():
-            x = preprocess_images(zeros, size=size)
-            enc_ms = time_ms(torch, lambda: enc.encoder(x), reps=3, warmup=1)
-        log(f"production throughput on {dev_info['card']}: {rate:.2f} "
-            f"images/s through generate_latents (decode by "
-            f"{decoder.split()[0]} overlapped, batch {PRODUCTION_BATCH}, "
-            f"bf16); pSp encoder "
-            f"{enc_ms:.1f} ms per batch of {PRODUCTION_BATCH} (CUDA events), "
-            f"{1e3 * PRODUCTION_BATCH / enc_ms:.1f} images/s; encoder peak "
-            f"memory {peak / 2**30:.2f} GiB above its weights")
-        del zeros, x
+    # the packs, their labels and paths, the manifest; a re-run encodes
+    # nothing
+    for split, per_class in (("train", PROD_TRAIN_PER_CLASS),
+                             ("val", PROD_VAL_PER_CLASS)):
+        files = sorted(f.name for f in out[split].iterdir())
+        check(files == ["latents_pack_0000.npz", "manifest.json"],
+              f"{split} output files {files}")
+        items = gen.collect_images(str(dirs[split]))
+        with np.load(out[split] / "latents_pack_0000.npz") as z:
+            lat, lab, paths = z["latents"], z["labels"], z["paths"]
+        check(lat.shape == (7 * per_class, 18, 512)
+              and lat.dtype == np.float32 and bool(np.isfinite(lat).all()),
+              f"{split} latents {lat.shape} {lat.dtype}")
+        check(lab.tolist() == [l for _, l in items]
+              and paths.tolist() == [p for p, _ in items],
+              f"{split} labels or paths out of order")
+        manifest = json.loads((out[split] / "manifest.json").read_text())
+        check(manifest == {"processed": sorted(p for p, _ in items),
+                           "next_shard": 1},
+              f"{split} manifest {str(manifest)[:200]}")
+        again = gen.generate_latents(str(dirs[split]), str(out[split]),
+                                     encoder=enc,
+                                     batch_size=PRODUCTION_BATCH)
+        check(again == 0, f"{split} resume encoded {again} images")
 
-        # w+ of 8 images: the CPU f32 encoder and the card at the serving
-        # batch, each against the production batch's w+
-        items = gen.collect_images(str(dirs["train"]))
-        pick = np.linspace(0, len(items) - 1, PROD_CHECK_IMAGES).astype(int)
-        imgs = np.stack([gen._load_image(items[k][0]) for k in pick])
-        with np.load(out["train"] / "latents_pack_0000.npz") as z:
-            w_prod = torch.from_numpy(z["latents"][pick])
-        cpu = EncoderWrapper(psp_sd, dtype=torch.float32, device="cpu")
-        t0 = time.perf_counter()
-        w_cpu = cpu.encode_batch(imgs)
-        log(f"production: CPU f32 reference on {PROD_CHECK_IMAGES} images in "
-            f"{time.perf_counter() - t0:.1f} s")
-        padded = np.concatenate([imgs, np.zeros_like(imgs)])
-        w_16 = enc.encode_batch(padded)[:PROD_CHECK_IMAGES].cpu()
+    # throughput: the train split again from scratch (warm), then the
+    # encoder alone per batch of 256 (CUDA events)
+    t0 = time.perf_counter()
+    gen.generate_latents(str(dirs["train"]), str(root / "again"),
+                         encoder=enc, batch_size=PRODUCTION_BATCH)
+    torch.cuda.synchronize()
+    rate = 7 * PROD_TRAIN_PER_CLASS / (time.perf_counter() - t0)
+    with torch.inference_mode():
+        x = preprocess_images(zeros, size=size)
+        enc_ms = time_ms(torch, lambda: enc.encoder(x), reps=3, warmup=1)
+    log(f"production throughput on {dev_info['card']}: {rate:.2f} "
+        f"images/s through generate_latents (decode by "
+        f"{decoder.split()[0]} overlapped, batch {PRODUCTION_BATCH}, "
+        f"bf16); pSp encoder "
+        f"{enc_ms:.1f} ms per batch of {PRODUCTION_BATCH} (CUDA events), "
+        f"{1e3 * PRODUCTION_BATCH / enc_ms:.1f} images/s; encoder peak "
+        f"memory {peak / 2**30:.2f} GiB above its weights")
+    del zeros, x
 
-        def rel(a, b):
-            return float((a - b).norm() / b.norm())
+    # w+ of 8 images: the CPU f32 encoder and the card at the serving
+    # batch, each against the production batch's w+
+    items = gen.collect_images(str(dirs["train"]))
+    pick = np.linspace(0, len(items) - 1, PROD_CHECK_IMAGES).astype(int)
+    imgs = np.stack([gen._load_image(items[k][0]) for k in pick])
+    with np.load(out["train"] / "latents_pack_0000.npz") as z:
+        w_prod = torch.from_numpy(z["latents"][pick])
+    cpu = EncoderWrapper(psp_sd, dtype=torch.float32, device="cpu")
+    t0 = time.perf_counter()
+    w_cpu = cpu.encode_batch(imgs)
+    log(f"production: CPU f32 reference on {PROD_CHECK_IMAGES} images in "
+        f"{time.perf_counter() - t0:.1f} s")
+    padded = np.concatenate([imgs, np.zeros_like(imgs)])
+    w_16 = enc.encode_batch(padded)[:PROD_CHECK_IMAGES].cpu()
 
-        d_cpu, d_16 = rel(w_prod, w_cpu), rel(w_prod, w_16)
-        log(f"production: w+ at batch {PRODUCTION_BATCH} (card bf16) vs CPU "
-            f"f32: relative L2 {d_cpu:.3e}; vs the card at batch "
-            f"{SLICE_BATCH}: {d_16:.3e} (tol {BF16_W_RTOL})")
-        check(d_cpu <= BF16_W_RTOL and d_16 <= BF16_W_RTOL,
-              "production w+ disagrees with the CPU f32 encoder or the "
-              "serving batch")
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
 
-        train = phase_training(torch, dev_info, root, out)
+    d_cpu, d_16 = rel(w_prod, w_cpu), rel(w_prod, w_16)
+    log(f"production: w+ at batch {PRODUCTION_BATCH} (card bf16) vs CPU "
+        f"f32: relative L2 {d_cpu:.3e}; vs the card at batch "
+        f"{SLICE_BATCH}: {d_16:.3e} (tol {BF16_W_RTOL})")
+    check(d_cpu <= BF16_W_RTOL and d_16 <= BF16_W_RTOL,
+          "production w+ disagrees with the CPU f32 encoder or the "
+          "serving batch")
+
+    train = phase_training(torch, dev_info, root, out)
     return {"production": {"batches": n_batches, "images": n_img,
                            "launches": launches},
-            "training": {"launches": train["launches"]}}
+            "training": train}
 
 
 def phase_training(torch, dev_info, root: Path, packs: dict) -> dict:
@@ -1590,16 +1709,17 @@ def phase_training(torch, dev_info, root: Path, packs: dict) -> dict:
         f"{res['best_f1']:.4f}")
 
     determinism_check(torch, packs["train"])
-    return {"launches": launches}
+    return {"launches": launches, "best_model": run / "checkpoints"
+            / "best_model.pt"}
 
 
-def determinism_runs(torch, latents, labels, lr: float = 1e-4,
-                     lockstep: bool = True) -> dict:
-    """DET_STEPS train steps of the full-width LatentViT from seeded
-    JAX-layout weights at batch DET_BATCH, dropout 0, the batches and mixup
-    draws made once from a seed: on the CPU in f32 and on the card in f32
-    and in bf16. Per run: the loss of each step and each step's gradients
-    (flattened, on the host).
+def lockstep_runs(torch, make_model, cfg, batches, lr: float,
+                  lockstep: bool = True, aug_cfg=None) -> dict:
+    """Train steps of ``make_model(dtype)`` from the same weights on the CPU
+    in f32 and on the card in f32 and in bf16, one step per entry of
+    ``batches`` (x, y, lam, perm0[, augmentation draws]), every draw made
+    once on the host. Per run: the loss of each step and each step's
+    gradients (flattened, on the host).
 
     ``lockstep``: each card run takes the CPU's parameters and AdamW state
     before every step, so that each step is compared from the same state.
@@ -1607,31 +1727,27 @@ def determinism_runs(torch, latents, labels, lr: float = 1e-4,
     parameter by about lr * sign(g) at first, so a gradient within rounding
     noise of 0 (each attention's key bias has an exact gradient of 0)
     moves by lr with either sign (``scripts/production_profile.py`` shows
-    both)."""
-    from fer_vit_tpu_torch.interop.from_jax import (
-        latent_vit_state_dict_from_jax)
-    from fer_vit_tpu_torch.models import LatentViT
-    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
+    both). With ``aug_cfg``, each step's fifth entry is the image
+    augmentation's draws, applied through the harness's ``augment_fn``."""
+    from fer_vit_tpu_torch.data.image_pipeline import apply_augment
+    from fer_vit_tpu_torch.train.harness import Harness
 
-    sd = latent_vit_state_dict_from_jax(latent_vit_jax_params())
-    cfg = TrainConfig(batch_size=DET_BATCH)  # mixup 1.0, smoothing 0.1
-    rng = np.random.default_rng(11)
-    batches = []
-    for _ in range(DET_STEPS):
-        idx = rng.choice(len(latents), DET_BATCH, replace=False)
-        batches.append((latents[idx], labels[idx].astype(np.int64),
-                        float(np.float32(rng.beta(1.0, 1.0))),
-                        rng.permutation(DET_BATCH)))
+    current = {}
+    augment_fn = None
+    if aug_cfg is not None:
+        def augment_fn(generator, xb):
+            return apply_augment(xb, current["draws"], aug_cfg)
+
     runs = {}
     for name, device, dtype in (("cpu", "cpu", torch.float32),
                                 ("f32", None, torch.float32),
                                 ("bf16", None, None)):
-        model = LatentViT(dropout=0.0, dtype=dtype)
-        model.load_state_dict(sd, strict=True)
-        h = Harness(model=model, cfg=cfg, device=device)
+        h = Harness(model=make_model(dtype), cfg=cfg, device=device,
+                    augment_fn=augment_fn)
         runs[name] = {"harness": h, "state": h.init_state(), "loss": [],
                       "grads": []}
-    for x, y, lam, perm0 in batches:
+    for x, y, lam, perm0, *draws in batches:
+        current["draws"] = draws[0] if draws else None
         # a copy: the CPU's step below updates its tensors in place
         start = copy.deepcopy(runs["cpu"]["state"].state_dict())
         for name, run in runs.items():
@@ -1642,14 +1758,43 @@ def determinism_runs(torch, latents, labels, lr: float = 1e-4,
             stats = h.train_step(
                 state, torch.from_numpy(x).to(dev),
                 torch.from_numpy(y).to(dev),
-                torch.ones(DET_BATCH, dtype=torch.bool, device=dev),
+                torch.ones(len(x), dtype=torch.bool, device=dev),
                 lr, lam, torch.from_numpy(perm0).to(dev))
-            run["loss"].append(float(stats["loss_sum"]) / DET_BATCH)
+            run["loss"].append(float(stats["loss_sum"]) / len(x))
             run["grads"].append(torch.cat(
                 [p.grad.float().flatten().cpu()
                  for p in state.model.parameters()]))
     return {k: {"loss": np.asarray(v["loss"]), "grads": v["grads"]}
             for k, v in runs.items()}
+
+
+def determinism_runs(torch, latents, labels, lr: float = 1e-4,
+                     lockstep: bool = True) -> dict:
+    """DET_STEPS train steps of the full-width LatentViT from seeded
+    JAX-layout weights at batch DET_BATCH, dropout 0, the batches and mixup
+    draws made once from a seed (:func:`lockstep_runs`)."""
+    from fer_vit_tpu_torch.interop.from_jax import (
+        latent_vit_state_dict_from_jax)
+    from fer_vit_tpu_torch.models import LatentViT
+    from fer_vit_tpu_torch.train.harness import TrainConfig
+
+    sd = latent_vit_state_dict_from_jax(latent_vit_jax_params())
+
+    def make_model(dtype):
+        model = LatentViT(dropout=0.0, dtype=dtype)
+        model.load_state_dict(sd, strict=True)
+        return model
+
+    rng = np.random.default_rng(11)
+    batches = []
+    for _ in range(DET_STEPS):
+        idx = rng.choice(len(latents), DET_BATCH, replace=False)
+        batches.append((latents[idx], labels[idx].astype(np.int64),
+                        float(np.float32(rng.beta(1.0, 1.0))),
+                        rng.permutation(DET_BATCH)))
+    # mixup 1.0, smoothing 0.1
+    return lockstep_runs(torch, make_model, TrainConfig(batch_size=DET_BATCH),
+                         batches, lr, lockstep)
 
 
 def determinism_errors(runs: dict, name: str):
@@ -1662,6 +1807,29 @@ def determinism_errors(runs: dict, name: str):
     return d_loss, d_grad
 
 
+def check_determinism(runs: dict, what: str, t0: float) -> None:
+    """Logs the card runs against the CPU's step by step and holds them to
+    the DET_* limits."""
+    ref_l = runs["cpu"]["loss"]
+    d_f32, g_f32 = determinism_errors(runs, "f32")
+    d_b16, g_b16 = determinism_errors(runs, "bf16")
+    log(f"{what} ({time.perf_counter() - t0:.1f} s): CPU f32 losses "
+        f"{np.round(ref_l, 6).tolist()}")
+    for name, d, g in (("f32", d_f32, g_f32), ("bf16", d_b16, g_b16)):
+        log(f"{what}: card {name} vs CPU f32 per step: loss relative error "
+            f"{[f'{v:.3e}' for v in d]}, gradient relative L2 "
+            f"{[f'{v:.3e}' for v in g]}")
+    log(f"{what}: card f32 loss max {d_f32.max():.3e} (tol "
+        f"{DET_F32_LOSS_RTOL}), gradients max {g_f32.max():.3e} (tol "
+        f"{DET_F32_GRAD_RTOL}); card bf16 loss max {d_b16.max():.3e} (tol "
+        f"{DET_BF16_LOSS_RTOL})")
+    check(bool(np.isfinite(ref_l).all())
+          and d_f32.max() <= DET_F32_LOSS_RTOL
+          and g_f32.max() <= DET_F32_GRAD_RTOL
+          and d_b16.max() <= DET_BF16_LOSS_RTOL,
+          f"{what}: training steps on the card disagree with the CPU")
+
+
 def determinism_check(torch, train_dir: Path) -> None:
     """The harness on the card against the CPU, on the produced packs, in
     lockstep (each step from the CPU's state)."""
@@ -1670,26 +1838,452 @@ def determinism_check(torch, train_dir: Path) -> None:
     store = LatentStore.load(str(train_dir))
     t0 = time.perf_counter()
     runs = determinism_runs(torch, store.latents, store.labels)
-    ref_l = runs["cpu"]["loss"]
-    d_f32, g_f32 = determinism_errors(runs, "f32")
-    d_b16, g_b16 = determinism_errors(runs, "bf16")
-    log(f"training determinism ({DET_STEPS} steps in lockstep, batch "
-        f"{DET_BATCH}, dropout 0, fixed mixup draws; "
-        f"{time.perf_counter() - t0:.1f} s): "
-        f"CPU f32 losses {np.round(ref_l, 6).tolist()}")
-    for name, d, g in (("f32", d_f32, g_f32), ("bf16", d_b16, g_b16)):
-        log(f"training determinism: card {name} vs CPU f32 per step: loss "
-            f"relative error {[f'{v:.3e}' for v in d]}, gradient relative "
-            f"L2 {[f'{v:.3e}' for v in g]}")
-    log(f"training determinism: card f32 loss max {d_f32.max():.3e} (tol "
-        f"{DET_F32_LOSS_RTOL}), gradients max {g_f32.max():.3e} (tol "
-        f"{DET_F32_GRAD_RTOL}); card bf16 loss max {d_b16.max():.3e} (tol "
-        f"{DET_BF16_LOSS_RTOL})")
-    check(bool(np.isfinite(ref_l).all())
-          and d_f32.max() <= DET_F32_LOSS_RTOL
-          and g_f32.max() <= DET_F32_GRAD_RTOL
-          and d_b16.max() <= DET_BF16_LOSS_RTOL,
-          "training steps on the card disagree with the CPU")
+    check_determinism(runs, f"training determinism ({DET_STEPS} steps in "
+                      f"lockstep, batch {DET_BATCH}, dropout 0, fixed mixup "
+                      f"draws)", t0)
+
+
+# -- phase 6: ImageViT training ------------------------------------------------
+
+# train_image_vit at ViT-Small/16 and 224 px on phase 5's face directory
+# (448 train and 112 val images): batch 32, 2 epochs, augmentation on.
+# ``--model_size custom`` with the CLI's default dims is ViT-Small/16 (384
+# wide, 12 layers, 6 heads of 64, MLP 1536); the presets, as in the JAX
+# trainer, build their model without ``--dropout``, and only with dropout 0
+# does the training forward take the fused attention kernel.
+IMAGE_TRAIN_ARGS = ("--img_size", "224", "--model_size", "custom",
+                    "--batch_size", "32", "--dropout", "0",
+                    "--use_augmentation", "--epochs", "2")
+IMAGE_TRAIN_EPOCHS = 2
+# Lockstep determinism of the image harness: 3 steps at batch 16 of the
+# same ViT-Small (seeded weights, dropout 0, augmentation with fixed draws,
+# the trainer's lr 1e-3, weight decay 0.05, smoothing 0.1, no mixup), held
+# to phase 5's DET_* limits.
+IMAGE_DET_STEPS = 3
+IMAGE_DET_BATCH = 16
+IMAGE_DET_MODEL = dict(img_size=224, embed_dim=384, depth=12, heads=6,
+                       mlp_dim=1536, dropout=0.0)
+
+
+def phase_image_training(torch, dev_info, root: Path) -> dict:
+    """train_image_vit.main on phase 5's face directory; its run stays under
+    ``root`` for phase 7."""
+    from fer_vit_tpu_torch.train import train_image_vit
+
+    argv = ["--train_dir", str(root / "train"), "--val_dir",
+            str(root / "val"), *IMAGE_TRAIN_ARGS,
+            "--experiments_dir", str(root / "image_experiments")]
+    args = train_image_vit.build_parser().parse_args(argv)
+    clock = EpochClock(sys.stdout)
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        res = train_image_vit.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    # mixup 0: one forward per training step, none after it; no dropout:
+    # every attention of the 12 layers takes the TMA kernel, forward only;
+    # each epoch also evaluates the val split once (in batches of 32)
+    n, n_val = 7 * PROD_TRAIN_PER_CLASS, 7 * PROD_VAL_PER_CLASS
+    steps = -(-n // args.batch_size)
+    n_fwd = IMAGE_TRAIN_EPOCHS * (steps + -(-n_val // args.batch_size))
+    log(f"image training: {IMAGE_TRAIN_EPOCHS} epochs of {steps} steps and "
+        f"{-(-n_val // args.batch_size)} eval batches, launches {launches}")
+    check(launches == {K1_SM90: 0, K1_MMA: 0,
+                       "flash_attention_sm90": 12 * n_fwd,
+                       "flash_attention": 0},
+          f"image training launches {launches}, expected {12 * n_fwd} "
+          f"flash_attention_sm90 and none of the other kernels")
+    hist = res["history"]
+    check(len(hist) == IMAGE_TRAIN_EPOCHS
+          and all(math.isfinite(v) for h in hist for v in h.values()),
+          f"image training history {hist}")
+    # each epoch's wall time: from the end of the previous epoch (the first:
+    # from the call's start, set-up included) to the trainer's own
+    # "Epoch e/N" line, which fit prints once the epoch's val metrics are
+    # on the host; so an interval holds the previous epoch's checkpoint
+    # writes, this epoch's steps and its evaluation
+    check(len(clock.times) == IMAGE_TRAIN_EPOCHS,
+          f"{len(clock.times)} epoch lines")
+    for e, (h, t1, t_prev) in enumerate(
+            zip(hist, clock.times, [t0] + clock.times), 1):
+        t = t1 - t_prev
+        log(f"image training epoch {e} on {dev_info['card']}: "
+            f"{steps / t:.2f} steps/s, {n / t:.1f} samples/s (batch "
+            f"{args.batch_size}, {steps} steps, {t:.3f} s"
+            f"{' from the call start' if e == 1 else ''}, evaluation and "
+            f"checkpoint writes included), train_loss "
+            f"{h['train_loss']:.4f}, val_loss {h['val_loss']:.4f}, val_f1 "
+            f"{h['val_f1']:.4f}")
+    log(f"image training: the whole call {wall:.3f} s on {dev_info['card']} "
+        f"({IMAGE_TRAIN_EPOCHS * steps / wall:.2f} steps/s over it)")
+    # the experiment-dir contract
+    run = Path(res["experiment_path"])
+    check(run.parent.parent == root / "image_experiments"
+          and run.parent.name == "image_vit_d12_h6_do0.0_lr0.001_bs32_ep2_"
+                                 "frac100",
+          f"experiment dir {run}")
+    config = json.loads((run / "config.json").read_text())
+    check(config["model"]["model_size"] == "custom"
+          and config["model"]["embed_dim"] == 384
+          and config["model"]["img_size"] == 224
+          and config["data"]["train_samples"] == n,
+          f"config {config}")
+    tags = [json.loads(line)["tag"] for line in
+            (run / "logs" / "scalars.jsonl").read_text().splitlines()]
+    want = ["train_loss", "train_acc", "train_f1", "val_loss", "val_acc",
+            "val_f1", "Learning_Rate/Group_0"] * IMAGE_TRAIN_EPOCHS
+    check(tags == want, f"scalar tags {tags}")
+    summary = json.loads((run / "experiment_summary.json").read_text())
+    check(set(summary) == {"experiment_name", "run_id", "duration_seconds",
+                           "final_metrics", "config"},
+          f"summary keys {sorted(summary)}")
+    best = run / "checkpoints" / "best_model.pt"
+    check(best.exists() and res["best_f1"] > 0,
+          f"no best_model.pt (best val F1 {res['best_f1']})")
+    log(f"image training: experiment dir {run.relative_to(root)} ok, best "
+        f"val F1 {res['best_f1']:.4f}")
+
+    image_determinism_check(torch, root / "train")
+    return {"launches": launches, "best_model": best}
+
+
+def image_determinism_check(torch, train_dir: Path) -> None:
+    from fer_vit_tpu_torch.data.image_pipeline import (ImageAugmentConfig,
+                                                       ImageStore,
+                                                       draw_augment)
+    from fer_vit_tpu_torch.models import ImageViT
+    from fer_vit_tpu_torch.train.harness import TrainConfig
+
+    size = IMAGE_DET_MODEL["img_size"]
+    store = ImageStore.load(str(train_dir), size)
+    sd = ImageViT(**IMAGE_DET_MODEL,
+                  generator=torch.Generator().manual_seed(12)).state_dict()
+
+    def make_model(dtype):
+        model = ImageViT(**IMAGE_DET_MODEL, dtype=dtype)
+        model.load_state_dict(sd, strict=True)
+        return model
+
+    aug_cfg = ImageAugmentConfig()
+    rng = np.random.default_rng(13)
+    gen = torch.Generator().manual_seed(14)
+    batches = []
+    for _ in range(IMAGE_DET_STEPS):
+        idx = rng.choice(len(store), IMAGE_DET_BATCH, replace=False)
+        batches.append((store.images[idx],
+                        store.labels[idx].astype(np.int64), 1.0,
+                        np.arange(IMAGE_DET_BATCH),
+                        draw_augment(gen, IMAGE_DET_BATCH, size, size,
+                                     aug_cfg)))
+    cfg = TrainConfig(batch_size=IMAGE_DET_BATCH, lr=1e-3,
+                      weight_decay=0.05, mixup=0.0, label_smoothing=0.1)
+    t0 = time.perf_counter()
+    runs = lockstep_runs(torch, make_model, cfg, batches, 1e-3,
+                         aug_cfg=aug_cfg)
+    check_determinism(runs, f"image training determinism ({IMAGE_DET_STEPS} "
+                      f"steps of ViT-Small in lockstep, batch "
+                      f"{IMAGE_DET_BATCH}, dropout 0, fixed augmentation "
+                      f"draws)", t0)
+
+
+# -- phase 7: serving the checkpoints through the predict CLI --------------------
+
+# The predict CLI's batch and top-k; the val split (112 images, 2 batches)
+# through --input and --packed on each route.
+SERVE_BATCH = 64
+SERVE_TOP_K = 3
+# Card against CPU f32 on each route: every 8th val image (two of each
+# class), through the trained checkpoint and through a seeded one, whose
+# outputs depend on their input. Phase 5's and 6's checkpoints are trained
+# on little data and answer alike for every image (on the image route,
+# class 5 for all 112 and the same top-2 margin, 0.017), so a limit on
+# |dprob| says little there. The seeded checkpoint is the trained one's
+# payload (its config) with the seeded weights of phases 3 and 4 at the
+# trained model's widths; on its images (read on the CPU) some class's
+# probability moves by 0.048 (latent) and 0.237 (image), more than twice
+# each route's bf16 limit, so a card run that answered alike for every
+# image would fail it, and at least one top-2 margin exceeds the label
+# check's 0.1 (latent: all 14; image: 11 of 14).
+SERVE_CPU_STRIDE = 8
+
+
+def run_pack_cli(inputs, packs: dict, meanwhile) -> dict:
+    """``python -m fer_vit_tpu_torch.data.image_packs`` once per entry of
+    ``packs`` (size -> output dir), each in a process of its own, all
+    started together; ``meanwhile()`` runs while they work. Their
+    manifests by size."""
+    from fer_vit_tpu_torch.data.image_packs import read_manifest
+
+    procs = {size: subprocess.Popen(
+        [sys.executable, "-m", "fer_vit_tpu_torch.data.image_packs",
+         "--input", *map(str, inputs), "--output", str(out), "--size",
+         str(size)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for size, out in packs.items()}
+    try:
+        meanwhile()
+    finally:
+        outs = {size: proc.communicate(timeout=600)
+                for size, proc in procs.items()}
+    for size, proc in procs.items():
+        check(proc.returncode == 0,
+              f"image_packs CLI failed: {outs[size][1][-2000:]}")
+        log(f"image packs: {outs[size][0].strip()}")
+    return {size: read_manifest(str(out)) for size, out in packs.items()}
+
+
+def pack_images(pack: Path) -> np.ndarray:
+    from fer_vit_tpu_torch.data.image_packs import read_manifest
+
+    return np.concatenate([np.load(pack / s["file"]) for s in
+                           read_manifest(str(pack))["shards"]])
+
+
+def predict_cli(torch, argv) -> tuple:
+    """predict_main on ``argv`` with every kernel count set to 0 just
+    before; (report, launches, wall seconds)."""
+    from fer_vit_tpu_torch.serve import build_predict_parser, predict_main
+
+    args = build_predict_parser().parse_args(
+        ["--batch_size", str(SERVE_BATCH), "--top_k", str(SERVE_TOP_K),
+         *map(str, argv)])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    report = predict_main(args)
+    torch.cuda.synchronize()
+    return report, kernel_counts(), time.perf_counter() - t0
+
+
+def seeded_checkpoint(torch, route: str, ckpt: Path, out: Path) -> Path:
+    """``ckpt``'s payload with the seeded weights of phases 3 and 4 (at the
+    trained model's widths) in place of its model's, saved to ``out``."""
+    from fer_vit_tpu_torch.interop.from_jax import (
+        image_vit_state_dict_from_jax, latent_vit_state_dict_from_jax)
+
+    payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+    trained = payload["state"]["model"]
+    m = json.loads(payload["config"])["model"]
+    dims = {k: m[k] for k in ("embed_dim", "depth", "mlp_dim")}
+    if route == "latent":
+        sd = latent_vit_state_dict_from_jax(latent_vit_jax_params(**dims))
+    else:
+        sd = image_vit_state_dict_from_jax(image_vit_jax_params(
+            img_size=m["img_size"], patch_size=m["patch_size"], **dims))
+    check(sd.keys() == trained.keys()
+          and all(sd[k].shape == trained[k].shape for k in sd),
+          f"seeded {route} weights do not fit the trained checkpoint")
+    payload["state"]["model"] = sd
+    torch.save(payload, out)
+    return out
+
+
+def card_vs_cpu(torch, what: str, ckpt: Path, psp, imgs, bf16_tol: float,
+                margin: float, f32_tol: float, seeded: bool) -> None:
+    """``Predictor.from_checkpoint`` on the card in bf16 and in f32 against
+    the CPU in f32 on ``imgs``: probabilities within the route's limits, f32
+    labels equal, bf16 labels equal wherever the CPU's top two are more than
+    ``margin`` apart. ``seeded``: the outputs must also depend on the input
+    (some class's probability moves by more than twice ``bf16_tol`` across
+    ``imgs``) and some image must clear ``margin``."""
+    from fer_vit_tpu_torch.serve import Predictor
+
+    runs = {}
+    for name, dtype, device in (("bf16", None, None),
+                                ("f32", torch.float32, None),
+                                ("cpu", torch.float32, "cpu")):
+        pred = Predictor.from_checkpoint(
+            str(ckpt), psp=psp(dtype, device), batch_size=len(imgs),
+            dtype=dtype, device=device)
+        runs[name] = pred.predict(imgs)
+        del pred
+    cpu_labels, cpu_probs = runs["cpu"]
+    dp = float(np.abs(runs["bf16"][1] - cpu_probs).max())
+    dp32 = float(np.abs(runs["f32"][1] - cpu_probs).max())
+    top2 = np.sort(cpu_probs, axis=1)[:, -2:]
+    gaps = top2[:, 1] - top2[:, 0]
+    clear = gaps > margin
+    agree = runs["bf16"][0] == cpu_labels
+    spread = float(np.ptp(cpu_probs, axis=0).max())
+    log(f"serving {what}: card bf16 vs CPU f32 on {len(imgs)} images max "
+        f"|dprob| {dp:.3e} (tol {bf16_tol}), labels agree on "
+        f"{int(agree[clear].sum())} of the {int(clear.sum())} with a CPU "
+        f"top-2 margin over {margin} (margins {gaps.min():.4f} to "
+        f"{gaps.max():.4f}; all agree: {bool(agree.all())}); card f32 vs "
+        f"CPU f32 max |dprob| {dp32:.3e} (tol {f32_tol}), labels agree "
+        f"{bool((runs['f32'][0] == cpu_labels).all())}; the CPU's "
+        f"probabilities move by up to {spread:.4f} across the images, "
+        f"labels {np.bincount(cpu_labels, minlength=7).tolist()} by class")
+    check(bool(np.isfinite(cpu_probs).all()) and dp <= bf16_tol
+          and bool(agree[clear].all()),
+          f"{what}: bf16 card run disagrees with the CPU f32 run")
+    check(dp32 <= f32_tol and bool((runs["f32"][0] == cpu_labels).all()),
+          f"{what}: f32 card run disagrees with the CPU f32 run")
+    if seeded:
+        check(spread > 2 * bf16_tol and bool(clear.any()),
+              f"{what}: the outputs barely depend on the input (spread "
+              f"{spread:.4f}) or no margin clears {margin}")
+
+
+def phase_serving(torch, dev_info, root: Path, latent_ckpt: Path,
+                  image_ckpt: Path) -> dict:
+    """Phase 5's LatentViT and phase 6's ImageViT checkpoints served through
+    the predict CLI, on files and on packs."""
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.interop.from_jax import (load_npz_variables,
+                                                    psp_state_dict_from_jax,
+                                                    save_npz_variables)
+    from fer_vit_tpu_torch.serve import Predictor, _collect_inputs
+
+    val = root / "val"
+    paths = _collect_inputs([str(val)])
+    check(len(paths) == 7 * PROD_VAL_PER_CLASS, f"{len(paths)} val images")
+    # a separate input directory: three val images and one corrupt file
+    bad_dir = root / "with_corrupt"
+    bad_dir.mkdir()
+    for i, p in enumerate(paths[:3]):
+        (bad_dir / f"{i}_{Path(p).name}").write_bytes(Path(p).read_bytes())
+    (bad_dir / "corrupt.png").write_bytes(b"\x89PNG\r\n\x1a\nnot an image")
+
+    psp_npz = root / "psp_seeded.npz"
+
+    def write_psp_npz():
+        t0 = time.perf_counter()
+        save_npz_variables(psp_jax_variables(), str(psp_npz))
+        log(f"serving: wrote the seeded pSp weights in the JAX layout "
+            f"({psp_npz.stat().st_size / 2**20:.0f} MiB) in "
+            f"{time.perf_counter() - t0:.1f} s, while the val images were "
+            f"packed")
+
+    packs = {size: root / f"pack_{size}" for size in (PROD_SIZE, IMAGE_SIZE)}
+    manifests = run_pack_cli([val], packs, write_psp_npz)
+    launches = dict.fromkeys(KERNEL_META, 0)
+    n_batches = -(-len(paths) // SERVE_BATCH)
+    routes = (
+        ("latent", latent_ckpt, PROD_SIZE, ["--psp_weights", psp_npz],
+         {K1_SM90: 24}, BF16_PROB_TOL, BF16_MARGIN, F32_PROB_TOL),
+        ("image", image_ckpt, IMAGE_SIZE, [],
+         {"flash_attention_sm90": 12}, IMAGE_BF16_PROB_TOL,
+         IMAGE_BF16_MARGIN, IMAGE_F32_PROB_TOL))
+    for (route, ckpt, size, extra, per_batch, bf16_tol, margin,
+         f32_tol) in routes:
+        pack, manifest = packs[size], manifests[size]
+        check(manifest["size"] == size and manifest["paths"] == paths
+              and all(manifest["decode_ok"]),
+              f"{route} pack manifest {str(manifest)[:300]}")
+        reports = {}
+        for source, arg in (("files", ["--input", val]),
+                            ("packs", ["--packed", pack])):
+            out = root / f"pred_{route}_{source}.json"
+            report, counts, wall = predict_cli(
+                torch, ["--checkpoint_path", ckpt, *extra, *arg,
+                        "--output", out])
+            want = {k: per_batch.get(k, 0) * n_batches for k in KERNEL_META}
+            log(f"serving {route} route, {source}: predict CLI {wall:.2f} s "
+                f"for {report['num_images']} images ({n_batches} batches of "
+                f"{SERVE_BATCH}; checkpoint load included), launches "
+                f"{counts}")
+            check(counts == want, f"{route} route on {source}: launches "
+                  f"{counts}, expected {want}")
+            check(report["model"]["route"] == route
+                  and report["num_images"] == len(paths)
+                  and report["decode_failures"] == []
+                  and [r["path"] for r in report["predictions"]] == paths
+                  and json.loads(out.read_text()) == report,
+                  f"{route} route on {source}: report "
+                  f"{str(report)[:300]}")
+            for name in launches:
+                launches[name] += counts[name]
+            reports[source] = report
+
+        # the same checkpoint behind one Predictor (the CLI's runs above
+        # read --psp_weights; the comparisons share one read of it):
+        # files, packs and the decoded arrays give bit-identical labels
+        # and probabilities, and the CLI's reports carry them
+        psp_sd = (psp_state_dict_from_jax(load_npz_variables(str(psp_npz)))
+                  if extra else None)
+
+        def psp(dtype=None, device=None):
+            return (None if psp_sd is None else
+                    EncoderWrapper(psp_sd, dtype=dtype, device=device))
+
+        pred = Predictor.from_checkpoint(str(ckpt), psp=psp(),
+                                         batch_size=SERVE_BATCH)
+        check(pred.describe()["route"] == route, f"{pred.describe()}")
+        imgs = pack_images(pack)
+        l_arr, p_arr = pred.predict(imgs)
+        l_pack, p_pack = pred.predict_packed(str(pack))
+        l_file, p_file, ok = pred.predict_files(paths,
+                                                return_decode_ok=True)
+        check(bool(np.isfinite(p_arr).all())
+              and bool(np.allclose(p_arr.sum(axis=1), 1.0, atol=1e-5)),
+              f"{route} route: probabilities not finite or rows not "
+              f"summing to 1")
+        check(bool(ok.all()) and np.array_equal(l_arr, l_pack)
+              and np.array_equal(l_arr, l_file)
+              and np.array_equal(p_arr, p_pack)
+              and np.array_equal(p_arr, p_file),
+              f"{route} route: files, packs and arrays disagree (max "
+              f"|dprob| files {np.abs(p_file - p_arr).max():.3e}, packs "
+              f"{np.abs(p_pack - p_arr).max():.3e})")
+        for source, report in reports.items():
+            rows = report["predictions"]
+            check([r["label"] for r in rows] == l_arr.tolist()
+                  and all(t["prob"] == float(p_arr[i, t["label"]])
+                          for i, r in enumerate(rows) for t in r["top_k"])
+                  and all(len(r["top_k"]) == SERVE_TOP_K
+                          and r["top_k"][0]["label"] == r["label"]
+                          for r in rows),
+                  f"{route} route: the {source} report differs from "
+                  f"Predictor.predict")
+        log(f"serving {route} route: files, packs and decoded arrays "
+            f"bit-identical over {len(paths)} images; labels "
+            f"{np.bincount(l_arr, minlength=7).tolist()} by class")
+
+        # images/s on the warm predictor
+        for source, fn in (("files", lambda: pred.predict_files(paths)),
+                           ("packs", lambda: pred.predict_packed(str(pack)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"serving {route} route throughput on {dev_info['card']}: "
+                f"{source} {len(paths) / dt:.2f} images/s ({len(paths)} "
+                f"images, batch {SERVE_BATCH}, {dt:.3f} s, bf16, pipeline "
+                f"depth 2)")
+
+        # the card in bf16 and f32 against the CPU in f32, through the
+        # trained checkpoint and a seeded one
+        some = imgs[::SERVE_CPU_STRIDE]
+        for name, path, seeded in (
+                ("trained", ckpt, False),
+                ("seeded", seeded_checkpoint(torch, route, ckpt,
+                                             root / f"seeded_{route}.pt"),
+                 True)):
+            card_vs_cpu(torch, f"{route} route, {name} checkpoint", path,
+                        psp, some, bf16_tol, margin, f32_tol, seeded)
+        del pred, psp_sd
+
+    # the corrupt file: flagged, listed, its row kept (image route)
+    report, counts, _ = predict_cli(
+        torch, ["--checkpoint_path", image_ckpt, "--input", bad_dir,
+                "--output", root / "pred_corrupt.json"])
+    for name in launches:
+        launches[name] += counts[name]
+    by_name = {Path(r["path"]).name: r for r in report["predictions"]}
+    check(report["num_images"] == 4
+          and by_name["corrupt.png"]["decode_ok"] is False
+          and all(r["decode_ok"] for n, r in by_name.items()
+                  if n != "corrupt.png")
+          and [Path(p).name for p in report["decode_failures"]]
+          == ["corrupt.png"],
+          f"corrupt file not flagged: {str(report)[:400]}")
+    log(f"serving: the corrupt file is flagged (decode_ok false, listed in "
+        f"decode_failures); launches {counts}")
+    return {"launches": launches}
+
 
 if __name__ == "__main__":
     try:

@@ -11,20 +11,27 @@ Package map:
 * :mod:`fer_vit_tpu_torch.ops`      — hand-written CUDA kernels (fused IR-SE
   unit, fused attention) with their plain versions
 * :mod:`fer_vit_tpu_torch.nn`       — transformer layers and initializers
-* :mod:`fer_vit_tpu_torch.models`   — LatentViT and ImageViT
+* :mod:`fer_vit_tpu_torch.models`   — LatentViT, ImageViT and TimmViT
 * :mod:`fer_vit_tpu_torch.encoders` — pSp GradualStyleEncoder over IR-SE50
-* :mod:`fer_vit_tpu_torch.data`     — the image route's eval normalisation,
-  latent production (``generate_latents``, the native image decoder), the
-  latent store, latent augmentation and splits
+* :mod:`fer_vit_tpu_torch.data`     — the image store, augmentation and
+  normalisation, image packs, latent production (``generate_latents``, the
+  native image decoder), the latent store, latent augmentation and splits
 * :mod:`fer_vit_tpu_torch.train`    — losses, schedulers, the training
-  harness and fit loop, the ``train_latent_vit`` CLI
+  harness and fit loop, the ``train_latent_vit`` and ``train_image_vit``
+  CLIs
+* :mod:`fer_vit_tpu_torch.eval`     — the checkpoint loaders
 * :mod:`fer_vit_tpu_torch.utils`    — metrics and the experiment-dir logger
 * :mod:`fer_vit_tpu_torch.interop`  — weights from the JAX package's variables
-* :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent and image routes)
+  and its trainers' msgpack checkpoints
+* :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent and image routes,
+  from a checkpoint, over files and packs) and the predict CLI
 
 Command-line entry points (CUDA; ``main(args, device="cpu")`` from Python
-for the CPU): ``python -m fer_vit_tpu_torch.data.generate_latents`` and
-``python -m fer_vit_tpu_torch.train.train_latent_vit``.
+for the CPU): ``python -m fer_vit_tpu_torch.data.generate_latents``,
+``python -m fer_vit_tpu_torch.train.train_latent_vit``, ``python -m
+fer_vit_tpu_torch.train.train_image_vit``, ``python -m
+fer_vit_tpu_torch.data.image_packs`` and ``python -m
+fer_vit_tpu_torch.serve`` (the predict CLI).
 """
 
 __version__ = "0.1.0"

@@ -39,8 +39,8 @@ import torch
 
 from fer_vit_tpu_torch import EMOTION_TO_INDEX
 from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
+from fer_vit_tpu_torch.data.image_pipeline import IMAGE_EXTS
 
-IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 SHARD_SIZE = 4096
 
 
@@ -177,9 +177,11 @@ def resolve_worker_shard(num_shards: Optional[int],
     return num_shards, shard_id
 
 
-def load_encoder(encoder_model: Optional[str], device: torch.device):
+def load_encoder(encoder_model: Optional[str], device: torch.device,
+                 dtype: Optional[torch.dtype] = None):
     """The pSp encoder from a converted ``.npz`` (the JAX package's
-    ``convert_psp.py`` output) or a pSp ``.pt`` checkpoint."""
+    ``convert_psp.py`` output) or a pSp ``.pt`` checkpoint, in ``dtype``
+    compute (None: bf16 on CUDA, f32 on the CPU)."""
     from fer_vit_tpu_torch.encoders.psp import (EncoderWrapper,
                                                 psp_state_dict_from_checkpoint)
 
@@ -188,9 +190,10 @@ def load_encoder(encoder_model: Optional[str], device: torch.device):
             f"encoder checkpoint not found: {encoder_model!r} "
             "(pass a converted .npz or a pSp .pt)")
     if encoder_model.endswith(".npz"):
-        return EncoderWrapper.from_npz(encoder_model, device=device)
+        return EncoderWrapper.from_npz(encoder_model, dtype=dtype,
+                                       device=device)
     return EncoderWrapper(psp_state_dict_from_checkpoint(encoder_model),
-                          device=device)
+                          dtype=dtype, device=device)
 
 
 def _host(w) -> np.ndarray:

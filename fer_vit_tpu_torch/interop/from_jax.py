@@ -13,6 +13,10 @@ imports JAX) and writes the port's state dict:
   reference LatentViT names (``fer_vit_tpu/interop/torch_state.py``).
 * :func:`image_vit_state_dict_from_jax`: ``ImageViT`` params -> the
   reference ImageViT names (the same file).
+* :func:`timm_vit_state_dict_from_jax`: ``TimmViT`` params -> timm's names,
+  the inverse of ``fer_vit_tpu/encoders/convert_timm.py``.
+* :func:`state_dict_from_jax`: one of the three, picked from a checkpoint's
+  model config.
 
 It also keeps its own copy of the ``.npz`` (de)serialisation that
 ``convert_psp.py`` writes.
@@ -29,13 +33,21 @@ import torch
 Tensor = torch.Tensor
 
 
+def _np(a) -> np.ndarray:
+    """A leaf as an f32 numpy array: numpy, JAX, or a torch tensor (the
+    msgpack reader gives bf16 leaves as ``torch.bfloat16``)."""
+    if torch.is_tensor(a):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, dtype=np.float32)
+
+
 def _t(a) -> Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    return torch.from_numpy(np.array(_np(a), copy=True))
 
 
 def _conv(sd: Dict[str, Tensor], prefix: str, node: Mapping) -> None:
     """HWIO kernel (kh, kw, I, O) -> OIHW weight, plus the bias if any."""
-    sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(node["kernel"]),
+    sd[f"{prefix}.weight"] = _t(np.transpose(_np(node["kernel"]),
                                              (3, 2, 0, 1)))
     if "bias" in node:
         sd[f"{prefix}.bias"] = _t(node["bias"])
@@ -89,16 +101,16 @@ def psp_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
     for group in ("coarse", "middle", "fine"):
         heads = params[group]["heads"]
         n_convs = sum(1 for key in heads if key.startswith("conv_"))
-        for h in range(np.asarray(heads["linear"]["bias"]).shape[0]):
+        for h in range(_np(heads["linear"]["bias"]).shape[0]):
             for j in range(n_convs):
                 conv = heads[f"conv_{j}"]
                 _conv(sd, f"styles.{k}.convs.{2 * j}",
-                      {"kernel": np.asarray(conv["kernel"])[h],
-                       "bias": np.asarray(conv["bias"])[h]})
+                      {"kernel": _np(conv["kernel"])[h],
+                       "bias": _np(conv["bias"])[h]})
             lin = heads["linear"]
             sd[f"styles.{k}.linear.weight"] = _t(
-                np.asarray(lin["kernel"])[h].T)
-            sd[f"styles.{k}.linear.bias"] = _t(np.asarray(lin["bias"])[h])
+                _np(lin["kernel"])[h].T)
+            sd[f"styles.{k}.linear.bias"] = _t(_np(lin["bias"])[h])
             k += 1
     sd["latent_avg"] = _t(variables["constants"]["latent_avg"])
     return sd
@@ -106,7 +118,7 @@ def psp_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
 
 def _linear(sd: Dict[str, Tensor], prefix: str, node: Mapping) -> None:
     """Dense kernel (in, out) -> Linear weight (out, in), plus the bias."""
-    sd[f"{prefix}.weight"] = _t(np.asarray(node["kernel"]).T)
+    sd[f"{prefix}.weight"] = _t(_np(node["kernel"]).T)
     sd[f"{prefix}.bias"] = _t(node["bias"])
 
 
@@ -124,10 +136,10 @@ def _encoder_layers(sd: Dict[str, Tensor], tr: Mapping) -> None:
         layer, t = tr[f"layers_{i}"], f"transformer.layers.{i}"
         a = layer["self_attn"]
         sd[f"{t}.self_attn.in_proj_weight"] = _t(
-            np.asarray(a["in_proj_kernel"]).T)
+            _np(a["in_proj_kernel"]).T)
         sd[f"{t}.self_attn.in_proj_bias"] = _t(a["in_proj_bias"])
         sd[f"{t}.self_attn.out_proj.weight"] = _t(
-            np.asarray(a["out_proj_kernel"]).T)
+            _np(a["out_proj_kernel"]).T)
         sd[f"{t}.self_attn.out_proj.bias"] = _t(a["out_proj_bias"])
         _linear(sd, f"{t}.linear1", layer["linear1"])
         _linear(sd, f"{t}.linear2", layer["linear2"])
@@ -161,6 +173,57 @@ def image_vit_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
     _norm(sd, "norm", p["norm"])
     _linear(sd, "head", p["head"])
     return sd
+
+
+def timm_vit_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
+    """JAX ``TimmViT`` params (or variables holding ``params``) -> the
+    port's ``TimmViT`` state dict, which carries timm's names: the exact
+    inverse of ``fer_vit_tpu/encoders/convert_timm.py``. Only the top-level
+    entries present are converted, so a tree without ``head`` gives a state
+    dict without it (the ``pretrained_npz`` graft)."""
+    p = params.get("params", params)
+    sd: Dict[str, Tensor] = {}
+    if "patch_embed" in p:
+        _conv(sd, "patch_embed.proj", p["patch_embed"])
+    for name in ("cls_token", "pos_embed"):
+        if name in p:
+            sd[name] = _t(p[name])
+    blocks = sorted(int(m.group(1)) for k in p
+                    if (m := re.fullmatch(r"blocks_(\d+)", k)))
+    for i in blocks:
+        b, t = p[f"blocks_{i}"], f"blocks.{i}"
+        _norm(sd, f"{t}.norm1", b["norm1"])
+        _linear(sd, f"{t}.attn.qkv", b["attn"]["qkv"])
+        _linear(sd, f"{t}.attn.proj", b["attn"]["proj"])
+        _norm(sd, f"{t}.norm2", b["norm2"])
+        _linear(sd, f"{t}.mlp.fc1", b["fc1"])
+        _linear(sd, f"{t}.mlp.fc2", b["fc2"])
+    if "norm" in p:
+        _norm(sd, "norm", p["norm"])
+    if "head" in p:
+        _linear(sd, "head", p["head"])
+    return sd
+
+
+STATE_DICT_FROM_JAX = {
+    "latent_vit": latent_vit_state_dict_from_jax,
+    "image_vit": image_vit_state_dict_from_jax,
+    "timm_vit": timm_vit_state_dict_from_jax,
+}
+
+
+def state_dict_from_jax(model_config: Mapping,
+                        params: Mapping) -> Dict[str, Tensor]:
+    """A checkpoint's model config and params tree -> the port's state dict
+    for the model the config describes
+    (``fer_vit_tpu_torch/eval/evaluate_model.py::model_kind``). The kinds the
+    port does not have yet raise ``NotImplementedError``."""
+    from fer_vit_tpu_torch.eval.evaluate_model import NOT_PORTED, model_kind
+
+    kind = model_kind(model_config)
+    if kind not in STATE_DICT_FROM_JAX:
+        raise NotImplementedError(NOT_PORTED.format(kind))
+    return STATE_DICT_FROM_JAX[kind](params)
 
 
 # -- npz (de)serialisation of a variables tree (as convert_psp.py writes it) --

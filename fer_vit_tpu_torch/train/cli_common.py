@@ -9,12 +9,14 @@ JAX module waits for the port's DDP slice.
 from __future__ import annotations
 
 import argparse
+from functools import partial
 from typing import Optional
 
 import torch
 
 from fer_vit_tpu_torch.core.dtypes import DeviceLike
-from fer_vit_tpu_torch.data.latent_augment import get_latent_train_transforms
+from fer_vit_tpu_torch.data.latent_augment import (get_latent_train_transforms,
+                                                   latent_augment)
 from fer_vit_tpu_torch.data.latent_store import train_val_arrays
 from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
 from fer_vit_tpu_torch.train.loop import fit
@@ -115,8 +117,12 @@ def run_latent_training(
     if class_weights is not None:
         print(f"Class weights: {class_weights}")
 
+    augment_fn = (partial(latent_augment, config=cfg.augment)
+                  if cfg.augment is not None and cfg.augment.enabled
+                  else None)
     harness = Harness(model=model, cfg=cfg, class_weights=class_weights,
-                      lr_mult=lr_mult, wd_mask=wd_mask, device=device)
+                      lr_mult=lr_mult, wd_mask=wd_mask, augment_fn=augment_fn,
+                      device=device)
     print(f"Using device: {harness.device}")
     state = harness.init_state()
     state, start_epoch, initial_best, sched_state = load_resume(args, state)

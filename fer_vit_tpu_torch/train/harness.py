@@ -1,5 +1,5 @@
-"""The shared training engine: train and eval epochs over a latent set that
-lives on the device.
+"""The shared training engine: train and eval epochs over a data set that
+lives on the device (w+ latents, or uint8 images).
 
 Port of ``fer_vit_tpu/train/harness.py``. Every reference trainer shares one
 template: seeded determinism, class-balanced subsetting, inverse-frequency
@@ -18,6 +18,11 @@ train/train_latent_vit.py:108-148), best checkpoint on val macro-F1.
   so a test can feed it the draws the JAX harness made. Augmentation noise
   comes from a ``torch.Generator`` on the device; dropout from torch's
   default generator.
+* ``augment_fn(generator, xb)`` (the latent trainer's latent augmentation,
+  the image trainer's augmentation and normalisation) runs on each
+  training batch, and ``eval_transform(xb)`` (the image trainer's
+  normalisation) before every eval and prediction forward: the image set
+  stays uint8 on the device and each batch is transformed there.
 * Per-parameter LR multipliers (``lr_mult``) and the weight-decay mask
   (``wd_mask``), both keyed by parameter name, become the optimizer's param
   groups; each epoch sets every group's LR to the epoch's LR times its
@@ -27,15 +32,14 @@ train/train_latent_vit.py:108-148), best checkpoint on val macro-F1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
-from fer_vit_tpu_torch.data.latent_augment import (LatentAugmentConfig,
-                                                   latent_augment)
+from fer_vit_tpu_torch.data.latent_augment import LatentAugmentConfig
 from fer_vit_tpu_torch.train.losses import cross_entropy
 from fer_vit_tpu_torch.utils.metrics import confusion_update
 
@@ -55,6 +59,8 @@ class TrainConfig:
     use_class_weights: bool = False
     num_classes: int = 7
     seed: int = 42
+    # the latent augmentation, as data: the latent trainers hand it to the
+    # harness as ``augment_fn`` (``cli_common.run_latent_training``)
     augment: Optional[LatentAugmentConfig] = None
     eta_min: float = 0.0  # cosine floor (image trainer uses lr*0.01)
     # Train-metric source: the reference LATENT trainers run a clean
@@ -144,8 +150,9 @@ def clip_grad_global_norm_(params, max_norm: float) -> None:
 class Harness:
     """Train and eval epochs for one model and config.
 
-    ``lr_mult`` (parameter name -> multiplier; 0 freezes) and ``wd_mask``
-    (parameter name -> False for no weight decay) are optional. ``device``
+    ``lr_mult`` (parameter name -> multiplier; 0 freezes), ``wd_mask``
+    (parameter name -> False for no weight decay), ``augment_fn`` and
+    ``eval_transform`` are optional. ``device``
     defaults to CUDA and raises without it; ``device="cpu"`` for the
     CPU."""
 
@@ -155,6 +162,10 @@ class Harness:
     lr_mult: Optional[Mapping[str, float]] = None
     wd_mask: Optional[Mapping[str, bool]] = None
     device: DeviceLike = None
+    # (generator, xb) -> xb, before each training forward
+    augment_fn: Optional[Callable] = None
+    # (xb) -> xb, before eval and prediction forwards
+    eval_transform: Optional[Callable] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -196,8 +207,8 @@ class Harness:
         parameters' ``.grad`` keep this step's gradients."""
         cfg = self.cfg
         model = state.model
-        if cfg.augment is not None and cfg.augment.enabled:
-            xb = latent_augment(generator, xb, cfg.augment)
+        if self.augment_fn is not None:
+            xb = self.augment_fn(generator, xb)
 
         b = xb.shape[0]
         # Pad-safe pairing: a row keeps its sampled partner only when both
@@ -243,11 +254,15 @@ class Harness:
             return {"loss_sum": loss.detach() * n_valid, "n": n_valid,
                     "preds": preds, "labels": yb, "mask": mask}
 
+    def eval_input(self, xb: torch.Tensor) -> torch.Tensor:
+        """``xb`` as the eval forwards take it (``eval_transform``)."""
+        return xb if self.eval_transform is None else self.eval_transform(xb)
+
     @torch.no_grad()
     def eval_step(self, state: TrainState, xb, yb, mask,
                   class_weights=None) -> Dict[str, torch.Tensor]:
         state.model.eval()
-        logits = state.model(xb)
+        logits = state.model(self.eval_input(xb))
         loss = cross_entropy(logits, yb, class_weights,
                              self.cfg.label_smoothing, mask)
         n_valid = mask.float().sum()
@@ -292,7 +307,7 @@ class Harness:
         tensors."""
         idx = self.batched_indices(rng, data_x.shape[0])
         gen = None
-        if self.cfg.augment is not None and self.cfg.augment.enabled:
+        if self.augment_fn is not None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(int(rng.integers(2 ** 62)))
 
@@ -327,7 +342,8 @@ class Harness:
             if valid < bs:
                 xb = torch.cat([xb, xb.new_zeros((bs - valid,)
                                                  + tuple(xb.shape[1:]))])
-            outs.append(state.model(xb)[:valid].float().cpu())
+            outs.append(state.model(self.eval_input(xb))[:valid]
+                        .float().cpu())
         logits = (torch.cat(outs) if outs
                   else torch.zeros((0, self.cfg.num_classes)))
         probs = torch.softmax(logits, dim=-1)

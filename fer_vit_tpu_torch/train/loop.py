@@ -33,7 +33,7 @@ def grad_snapshot(harness: Harness, state: TrainState, xb, yb,
     model = state.model
     model.eval()
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-    loss = cross_entropy(model(xb), yb, class_weights,
+    loss = cross_entropy(model(harness.eval_input(xb)), yb, class_weights,
                          harness.cfg.label_smoothing)
     grads = torch.autograd.grad(loss, [p for _, p in named])
     return {n: g for (n, _), g in zip(named, grads)}
@@ -72,10 +72,15 @@ def fit(
             "resume seeding and plateau stepping are wired to 'f1_macro'")
     cfg = harness.cfg
     dev = harness.device
-    # the latent set lives on the device for the whole run
-    train_x = torch.as_tensor(np.asarray(train_x, np.float32), device=dev)
+    # the data set lives on the device for the whole run: latents in f32,
+    # images as uint8 (the harness's transforms convert each batch)
+    def on_device(x):
+        x = np.asarray(x)
+        return torch.as_tensor(x if x.dtype == np.uint8
+                               else x.astype(np.float32), device=dev)
+
+    train_x, val_x = on_device(train_x), on_device(val_x)
     train_y = torch.as_tensor(np.asarray(train_y, np.int64), device=dev)
-    val_x = torch.as_tensor(np.asarray(val_x, np.float32), device=dev)
     val_y = torch.as_tensor(np.asarray(val_y, np.int64), device=dev)
     class_weights = harness.class_weight_tensor()
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where latent production's and LatentViT training's time goes on one card.
+"""Where latent production's and the trainers' time goes on one card.
 
     python3 scripts/production_profile.py            # on one CUDA card
 
@@ -16,7 +16,12 @@
 3. Training steps of the full-width LatentViT at batch 64 in bf16 (the
    CLI's defaults): host time per step, and the device's busy time per step
    from the profiler, so its idle share.
-4. The harness's determinism runs of ``chip_smoke.py`` (5 steps, the card
+4. Training steps of ViT-Small/16 at 224 px (``train_image_vit``'s
+   ``--model_size custom --dropout 0``) at batch 32 in bf16 on uint8
+   images on the card, with the augmentation and with the normalisation
+   alone: host time per step, device busy time and launches per step, the
+   largest kernels.
+5. The harness's determinism runs of ``chip_smoke.py`` (5 steps, the card
    in f32 and bf16 against the CPU in f32), per step: run freely at lr
    1e-4 and at lr 0 (the parameters never move, so what grows with the
    steps at lr 1e-4 comes from the updates), and in lockstep at lr 1e-4
@@ -197,6 +202,57 @@ def training_steps() -> None:
           f"{1e3 * (time.perf_counter() - t0) / steps:.2f} ms per step")
 
 
+def image_training_steps() -> None:
+    from functools import partial
+
+    from fer_vit_tpu_torch.data.image_pipeline import (ImageAugmentConfig,
+                                                       image_augment,
+                                                       normalize_images)
+    from fer_vit_tpu_torch.models import ImageViT
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(0, 256, (448, 224, 224, 3),
+                                      dtype=np.uint8)).cuda()
+    y = torch.from_numpy(rng.integers(0, 7, 448)).cuda()
+    steps = 14
+    for name, augment_fn in (
+            ("augmentation", partial(image_augment,
+                                     config=ImageAugmentConfig())),
+            ("normalisation only", lambda g, xb: normalize_images(xb))):
+        model = ImageViT(img_size=224, embed_dim=384, depth=12, heads=6,
+                         mlp_dim=1536, dropout=0.0,
+                         generator=torch.Generator().manual_seed(7))
+        h = Harness(model=model, cfg=TrainConfig(batch_size=32, mixup=0.0,
+                                                 lr=1e-3,
+                                                 weight_decay=0.05),
+                    augment_fn=augment_fn, eval_transform=normalize_images)
+        state = h.init_state()
+        h.train_epoch(state, rng, x, y, 1e-3)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h.train_epoch(state, rng, x, y, 1e-3)
+        torch.cuda.synchronize()
+        plain = time.perf_counter() - t0
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            h.train_epoch(state, rng, x, y, 1e-3)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = device_kernels(prof)
+        busy = sum(r[1] for r in rows) / 1e3
+        print(f"image training ViT-Small batch 32 bf16, {name}: "
+              f"{1e3 * plain / steps:.2f} ms per step "
+              f"({steps / plain:.2f} steps/s, host clock); under the "
+              f"profiler {1e3 * wall / steps:.2f} ms per step, device busy "
+              f"{1e3 * busy / steps:.2f} ms per step, idle share "
+              f"{1 - busy / wall:.3f}; {sum(r[2] for r in rows) // steps} "
+              f"kernel launches per step; largest:")
+        for kname, ms, n in rows[:8]:
+            print(f"  {ms:8.2f} ms x{n:<5d} {kname[:110]}")
+
+
 def determinism_spread() -> None:
     rng = np.random.default_rng(5)
     latents = rng.normal(size=(448, 18, 512)).astype(np.float32)
@@ -225,6 +281,7 @@ def main() -> int:
     encoder_split()
     host_side()
     training_steps()
+    image_training_steps()
     determinism_spread()
     return 0
 

@@ -361,3 +361,70 @@ def test_generate_latents_on_the_card(smoke, tmp_path):
         items = collect_images(str(tmp_path / "data"))
         assert z["paths"].tolist() == [p for p, _ in items]
         assert z["labels"].tolist() == [l for _, l in items]
+
+
+# -- slice 4: serving a trained checkpoint --------------------------------------
+
+
+def _port_checkpoint(tmp_path, model, model_config):
+    """best_model.pt as the port's trainers write it."""
+    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
+    from fer_vit_tpu_torch.utils.experiment_logger import ExperimentLogger
+
+    h = Harness(model=model, cfg=TrainConfig(), device="cpu")
+    logger = ExperimentLogger("ckpt", base_dir=str(tmp_path))
+    logger.log_config({"model": model_config, "training": {}})
+    logger.save_checkpoint(h.init_state(), 1, {"f1_macro": 0.5},
+                           is_best=True)
+    logger.close()
+    return f"{logger.run_dir}/checkpoints/best_model.pt"
+
+
+@pytest.mark.parametrize("route", ["latent", "image"])
+def test_from_checkpoint_on_the_card(smoke, tmp_path, route):
+    """A checkpoint through Predictor.from_checkpoint on the card, 70 images
+    at batch 64: the latent route (full-size pSp with random weights,
+    LatentViT depth 1) launches the two-pass K1 kernel 24 times a batch,
+    the image route (ImageViT at 224 px, 384 wide, depth 2) the TMA K2
+    kernel twice a batch, and nothing else; the answers equal a Predictor
+    built on the same model directly, and the rows sum to 1."""
+    import numpy as np
+
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
+    from fer_vit_tpu_torch.ops import flash_attention
+    from fer_vit_tpu_torch.serve import Predictor
+
+    if route == "latent":
+        config = dict(latent_dim=512, embed_dim=128, depth=1, heads=4,
+                      mlp_dim=256, dropout=0.0)
+        kw = {"psp": EncoderWrapper(seed=0)}
+        size, want = 256, {fu.SM90: 48, fu.MMA: 0, SM90: 0, STREAMING: 0}
+    else:
+        config = dict(model_size="custom", img_size=224, patch_size=16,
+                      embed_dim=384, depth=2, heads=6, mlp_dim=768,
+                      dropout=0.0)
+        kw = {}
+        size, want = 224, {fu.SM90: 0, fu.MMA: 0, SM90: 4, STREAMING: 0}
+    model = model_from_config(config)
+    path = _port_checkpoint(tmp_path, model, config)
+    pred = Predictor.from_checkpoint(path, **kw)
+    assert pred.device.type == "cuda"
+    assert pred.describe()["route"] == route and pred.input_size == size
+    imgs = np.random.default_rng(3).integers(0, 256, (70, size, size, 3),
+                                             dtype=np.uint8)
+    pred.warmup()
+    fu.reset_launch_counts()
+    reset_launch_counts()
+    labels, probs = pred.predict(imgs)
+    torch.cuda.synchronize()
+    counts = {**fused_irse_residual.kernel_launches,
+              **flash_attention.fused_attention.kernel_launches}
+    assert counts == want
+    assert labels.shape == (70,) and probs.shape == (70, 7)
+    assert np.isfinite(probs).all()
+    np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-5)
+    direct = Predictor(model, image_route=route == "image", **kw)
+    d_labels, d_probs = direct.predict(imgs)
+    np.testing.assert_array_equal(labels, d_labels)
+    np.testing.assert_array_equal(probs, d_probs)

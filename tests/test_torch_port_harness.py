@@ -22,7 +22,8 @@ from fer_vit_tpu_torch.interop.from_jax import latent_vit_state_dict_from_jax
 from fer_vit_tpu_torch.models import LatentViT
 from fer_vit_tpu_torch.train.harness import (Harness, TrainConfig,
                                              make_optimizer, param_groups)
-from tests.torch_port_common import TINY_VIT, jax_latent_vit_variables
+from tests.torch_port_common import (TINY_VIT, assert_params_close,
+                                     jax_latent_vit_variables)
 
 B = 8
 # f32 on both sides in different operation orders: a loss of ~2 agrees to a
@@ -57,31 +58,6 @@ def _pair(seed=31, **cfg_kw):
     h = Harness(model=port, cfg=TrainConfig(batch_size=B, **cfg_kw),
                 device="cpu")
     return jh, jstate, h, h.init_state()
-
-
-def _assert_params_close(jstate, state, tol, steps=3, lr=1e-4):
-    """Every parameter within ``tol``, except the key bias of each
-    attention (the middle third of ``in_proj_bias``): adding a constant to
-    a row's scores leaves its softmax unchanged, so that bias's gradient is
-    exactly 0, both sides compute rounding noise of ~1e-9 (checked on the
-    port's last gradient), and AdamW turns noise of either sign into a step
-    of up to lr. There both sides stay within ``steps * lr`` of each
-    other."""
-    ref = latent_vit_state_dict_from_jax(
-        jax.tree_util.tree_map(np.asarray, jstate.params))
-    got = state.model.state_dict()
-    assert set(ref) == set(got)
-    params = dict(state.model.named_parameters())
-    d_model = TINY_VIT["embed_dim"]
-    for k in ref:
-        d = (got[k] - ref[k]).abs()
-        if k.endswith("self_attn.in_proj_bias"):
-            key_bias = slice(d_model, 2 * d_model)
-            grad = params[k].grad
-            assert grad is None or float(grad[key_bias].abs().max()) < 1e-7
-            assert float(d[key_bias].max()) <= steps * lr * (1 + 1e-3), k
-            d[key_bias] = 0
-        assert float(d.max()) <= tol, (k, float(d.max()))
 
 
 CASES = {
@@ -126,7 +102,7 @@ def test_train_steps_match_jax(case):
                                    rtol=0, atol=LOSS_TOL)
         np.testing.assert_array_equal(stats["preds"].numpy()[:n_real],
                                       np.asarray(jstats["preds"])[:n_real])
-        _assert_params_close(jstate, state, PARAM_TOL, steps=step + 1)
+        assert_params_close(jstate, state, PARAM_TOL, steps=step + 1)
 
 
 def test_mixup_pairs_real_rows_only_and_zeroes_pads():
@@ -250,7 +226,7 @@ def test_sgd_and_grad_clip_match_jax(optimizer, clip, lr):
         np.testing.assert_allclose(float(stats["loss_sum"]) / B,
                                    float(jstats["loss_sum"]) / B, rtol=0,
                                    atol=LOSS_TOL)
-        _assert_params_close(jstate, state, PARAM_TOL, steps=step + 1, lr=lr)
+        assert_params_close(jstate, state, PARAM_TOL, steps=step + 1, lr=lr)
 
 
 def test_train_config_and_draws():

@@ -37,7 +37,11 @@ def test_every_module_imports_with_jax_blocked():
               "train.schedulers", "train.harness", "train.loop",
               "train.cli_common", "train.train_latent_vit", "data.splits",
               "data.latent_augment", "data.latent_store",
-              "data.native_decode", "data.generate_latents"):
+              "data.native_decode", "data.generate_latents",
+              "interop.flax_msgpack", "models.timm_vit",
+              "models.hybrid_latent_vit", "eval.evaluate_model",
+              "eval.evaluate_image_vit", "data.image_packs",
+              "train.train_image_vit"):
         assert f"fer_vit_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -81,7 +85,7 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
     from fer_vit_tpu_torch.models import ImageViT, LatentViT
     from fer_vit_tpu_torch.serve import Predictor
-    from fer_vit_tpu_torch.train import train_latent_vit
+    from fer_vit_tpu_torch.train import train_image_vit, train_latent_vit
     from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
 
     if torch.cuda.is_available():
@@ -99,6 +103,12 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_latent_vit.main(train_latent_vit.build_parser().parse_args(
             ["--latent_train_dir", "x", "--latent_val_dir", "y"]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_image_vit.main(train_image_vit.build_parser().parse_args(
+            ["--train_dir", "x", "--val_dir", "y"]))
+    # before anything is read: the checkpoint need not exist
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor.from_checkpoint("missing.pt")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate_latents.main(generate_latents.build_parser().parse_args(
             ["--data_root", "x", "--latent_out", "y", "--encoder_model",
