@@ -63,6 +63,26 @@ Phases, in order; any failure exits non-zero before the result line:
    checkpoint and through a seeded one whose outputs depend on the input;
    images/s on files and on packs; a corrupt
    file in a separate input directory flagged and listed.
+8. the model zoo, trained and served: each zoo trainer CLI at its default
+   widths, bf16, 2 epochs on phase 5's packs (``train_latent_vit_v2`` with
+   SPE, LWN with its residual gate and LEAM; ``train_latent_cnn`` for
+   light, standard, deep and 2d; ``train_hybrid_latent_vit`` at ViT-Small
+   width from a seeded timm state dict converted by the port's
+   ``convert_timm`` and grafted, and with adapters on a frozen trunk;
+   ``train_expression_aware_vit`` from seeded directions in ``expr_only``
+   and ``concat`` mode), then ``vit_fer`` (ViT-B/16, 224 px, batch 32, 1
+   epoch on phase 5's faces): no kernel launched in any run, finite
+   histories, the JAX trainers' experiment dirs (``vit_fer``: its out
+   dir), steps/s and samples/s between the trainer's own lines; each last
+   checkpoint through ``Predictor.from_checkpoint`` on the card (24
+   ``fused_irse_unit_sm90`` launches for the 14 images' batch), its
+   classifier and a seeded one at its widths in bf16 and f32 against the
+   CPU in f32 on the 14 images' w+ (``vit_fer``: the images); the frozen
+   trunk bit for bit its init, the grafted one near the timm weights;
+   the concat checkpoint refused by the loader as in JAX; then 5 lockstep
+   harness steps of LatentCNN "standard" (the last batch padded), card
+   f32 and bf16 against the CPU in f32: losses, gradients and running
+   statistics.
 
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
@@ -77,7 +97,8 @@ on the CPU in f32.
 Each phase's wall seconds are logged as it ends. Before the kernels line,
 a JSON line gives the launches per kernel on each main path (the two
 serving slices, production, latent training, image training, checkpoint
-serving), phase 5's batches and images, and the phase seconds. The line
+serving, each zoo run and the zoo's serving), phase 5's batches and
+images, the zoo runs' steps/s, and the phase seconds. The line
 before the last is a JSON object listing the four kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
 ``flash_attention``) with their launches summed over the main paths, times,
@@ -900,15 +921,20 @@ def main() -> int:
         serving = timed("7 checkpoint serving", phase_serving, torch,
                         dev_info, root, prod["training"]["best_model"],
                         image["best_model"])
+        zoo = timed("8 model zoo", phase_zoo, torch, dev_info, root)
     paths.update({"production": prod["production"]["launches"],
                   "latent training": prod["training"]["launches"],
                   "image training": image["launches"],
-                  "checkpoint serving": serving["launches"]})
+                  "checkpoint serving": serving["launches"],
+                  **zoo["launches"]})
     launches = {name: sum(p[name] for p in paths.values())
                 for name in KERNEL_META}
     print(json.dumps({"launches_by_path": paths,
                       "production": {k: prod["production"][k]
                                      for k in ("batches", "images")},
+                      "zoo_steps_per_s": {
+                          k: round(r["steps_per_s"], 2)
+                          for k, r in zoo["rates"].items()},
                       "phase_seconds": seconds}))
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
@@ -2284,6 +2310,555 @@ def phase_serving(torch, dev_info, root: Path, latent_ckpt: Path,
         f"decode_failures); launches {counts}")
     return {"launches": launches}
 
+
+
+# -- phase 8: the model zoo, trained and served ---------------------------------
+
+# Each trainer CLI of the zoo at its default (published) widths, bf16, the
+# CLI's defaults (batch 64) but 2 epochs, on phase 5's latent packs (448
+# train and 112 val w+ codes): (name, module, argv, expected experiment
+# dir name). The hybrid and expression-aware runs use the ViT-Small trunk
+# (12 x 384); "{npz}" is a seeded timm ViT-Small state dict converted by
+# the port's convert_timm, "{dirs}" seeded 7 x 18 x 512 directions.
+ZOO_EPOCHS = 2
+_LATENT_NAME = "latent_vit_d6_h8_do0.1_lr{lr}_bs64_ep2_Mixup1.0"
+ZOO_RUNS = (
+    ("latent_vit_v2", "train_latent_vit_v2",
+     ["--use_spe", "--use_lwn", "--use_lwn_residual", "--use_leam"],
+     _LATENT_NAME.format(lr="0.0001") + "_frac100"),
+    *((f"latent_cnn {t}", "train_latent_cnn", ["--model_type", t],
+       f"latent_cnn_{t}_ep2_bs64_lr0.0001")
+      for t in ("light", "standard", "deep", "2d")),
+    ("hybrid pretrained", "train_hybrid_latent_vit",
+     ["--model_size", "small", "--use_pretrained", "--pretrained_npz",
+      "{npz}"], "hybrid_vit_" + _LATENT_NAME.format(lr="0.0001")),
+    # the "adapter" strategy of RECOMMENDED_STRATEGIES (lr 1e-3)
+    ("hybrid adapter", "train_hybrid_latent_vit",
+     ["--model_size", "small", "--use_adapter", "--freeze_transformer",
+      "--lr", "1e-3"], "hybrid_vit_" + _LATENT_NAME.format(lr="0.001")),
+    ("expression-aware expr_only", "train_expression_aware_vit",
+     ["--model_size", "small", "--directions_path", "{dirs}",
+      "--output_mode", "expr_only"],
+     "expr_aware_vit_" + _LATENT_NAME.format(lr="0.0001")),
+    ("expression-aware concat", "train_expression_aware_vit",
+     ["--model_size", "small", "--directions_path", "{dirs}",
+      "--output_mode", "concat"],
+     "expr_aware_vit_" + _LATENT_NAME.format(lr="0.0001")),
+)
+# vit_fer (the legacy trainer): ViT-B/16 at 224 px, batch 32, 1 epoch, on
+# phase 5's face directory (train/ and val/ as its train and test dirs)
+VIT_FER_ARGS = ("--model_size", "base", "--img_size", "224",
+                "--batch_size", "32", "--epochs", "1")
+# Card against CPU f32 on the classifiers of the served checkpoints, on the
+# w+ of every 8th val image (14; phase 5's pack: the pSp is held against
+# the CPU in phases 3, 5 and 7) and, for vit_fer, on those 14 images. Each
+# through the trained last checkpoint and through seeded weights at its
+# widths (kernels N(0, 1/fan_in), norms near identity, the BatchNorms'
+# running statistics those of the 112 val w+, the head scaled to logits of
+# std 0.5 over them), whose outputs spread across the images. f32 (TF32
+# off) within 1e-4 of the probabilities, labels equal (read: up to 4.4e-6).
+# bf16: labels equal where the CPU's top two are more than 0.1 apart, and
+# the probabilities within 5e-2 on the transformers (read: 3.04e-2,
+# ExpressionAwareViT's trunk on w+ at a CPU spread of 0.52) and 1e-1 on the
+# CNNs: a bf16 convolution's output, rounded to 8 bits, loses more where
+# the BatchNorm after it subtracts a channel mean large against the
+# channel's spread (the w+ codes share a large common part); read: 2d
+# 5.03e-2 at a spread of 0.46, deep (16 BatchNorm'd convolutions) 2.26e-2
+# at 0.38. The f32 check is the exact one.
+ZOO_LOGIT_STD = 0.5
+ZOO_BF16_PROB_TOL = {"transformer": 5e-2, "cnn": 1e-1}
+ZOO_BF16_MARGIN = 0.1
+ZOO_F32_PROB_TOL = 1e-4
+# The lockstep check of LatentCNN "standard" through the harness: 5 steps
+# at batch 64 (the last with 40 real rows), dropout 0, mixup with fixed
+# draws, the clean post-step forward (the CNN trainer's settings), card
+# f32 and bf16 each from the CPU's state before every step. Train-mode
+# BatchNorm takes E[x^2] - E[x]^2 over channels whose mean is large against
+# their spread (the w+ codes share a large common part), which magnifies
+# rounding: on the CPU alone, scaling the input by 1 + 2^-23 moves the
+# gradients by up to 2.3e-3 relative L2 after a few steps (read on synthetic
+# w+ with a common part). So a second CPU run takes that scaled input, and
+# the card is held to ZOO_ULP_FACTOR times what it moves (or phase 5's
+# DET_* limits, whichever is larger) in each step's gradients and in the
+# running statistics after it (or 1e-4 of the tensor's largest magnitude
+# plus 0.25 lr: the clean forward runs on the updated parameters, where
+# AdamW's sign-like steps of gradients at the noise floor may go either
+# way); the losses as phase 5 holds them.
+ZOO_ULP_FACTOR = 4.0
+ZOO_DET_STEPS = 5
+ZOO_DET_BATCH = 64
+ZOO_DET_LAST_REAL = 40
+ZOO_STAT_RTOL = 1e-4
+
+
+class LineClock(EpochClock):
+    """An EpochClock that also notes the time of the last line starting
+    with "Loaded " (the image store's)."""
+
+    def __init__(self, out):
+        super().__init__(out)
+        self.loaded = None
+
+    def write(self, text: str) -> int:
+        if text.startswith("Loaded "):
+            self.loaded = time.perf_counter()
+        return super().write(text)
+
+
+def seeded_state_dict(torch, sd: dict, seed: int) -> dict:
+    """Seeded weights for a state dict, by name and shape: weights of two
+    or more dims N(0, 1/fan_in), 1-D weights (norm scales) near 1, running
+    variances in [0.5, 1.5], everything else 0.1 N(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in sd.items():
+        if not v.is_floating_point():
+            out[k] = v.clone()
+            continue
+        leaf = k.rsplit(".", 1)[-1]
+        n = torch.randn(v.shape, generator=g)
+        if leaf == "running_var":
+            out[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif leaf in ("weight", "in_proj_weight") and v.dim() >= 2:
+            out[k] = n / math.sqrt(v[0].numel())
+        elif leaf == "weight":
+            out[k] = 1 + 0.1 * n
+        else:
+            out[k] = 0.1 * n
+    return out
+
+
+def calibrated(torch, model, x: np.ndarray) -> dict:
+    """The state dict of ``model`` (f32, dropout off) with seeded weights,
+    made to behave as a trained net's on ``x`` (on the card): every
+    BatchNorm's running statistics set to its batch statistics over ``x``
+    (one train-mode forward), then the last Linear's weight scaled so that
+    the logits have a std of ZOO_LOGIT_STD across ``x``. With random
+    statistics the BatchNorms keep the w+ codes' common part, and the
+    average pools remove most of what varies (the 18 layers differ more
+    than the images do), so a seeded CNN answers alike for every input."""
+    from fer_vit_tpu_torch.nn.masked_batchnorm import MaskedBatchNorm
+
+    m = model.cuda()
+    xs = torch.from_numpy(x).cuda()
+    bns = [b for b in m.modules() if isinstance(b, MaskedBatchNorm)]
+    for b in bns:
+        b.momentum = 0.0
+    with torch.no_grad():
+        if bns:
+            m.train()(xs)
+        std = float(m.eval()(xs).std(dim=0).mean())
+    out = {k: v.cpu() for k, v in m.state_dict().items()}
+    head = [k for k, v in out.items() if k.endswith(".weight")
+            and v.dim() == 2 and v.shape[0] == m.num_classes][-1]
+    out[head] = out[head] * (ZOO_LOGIT_STD / std)
+    return out
+
+
+def write_timm_small_npz(torch, path: Path) -> Path:
+    """A seeded timm ViT-Small/16 state dict (timm's names: the port's
+    TimmViT), saved as a torch file and converted by the port's
+    convert_timm into the ``.npz`` the hybrid trainer grafts."""
+    from fer_vit_tpu_torch.encoders import convert_timm
+    from fer_vit_tpu_torch.models import create_timm_vit
+
+    model, _ = create_timm_vit("small", num_classes=1000,
+                               generator=torch.Generator().manual_seed(31))
+    src = path.with_suffix(".pt")
+    torch.save(model.state_dict(), src)
+    convert_timm.convert_file(str(src), str(path))
+    return path
+
+
+def zoo_probs(torch, model, x, device) -> np.ndarray:
+    with torch.inference_mode():
+        logits = model.to(device).eval()(torch.as_tensor(x).to(device))
+    return torch.softmax(logits.float(), dim=-1).cpu().numpy()
+
+
+def zoo_card_vs_cpu(torch, what: str, build, x, bf16_tol: float) -> dict:
+    """``build(dtype, device)`` -> a model; its probabilities on ``x``
+    (host array) on the card in bf16 (within ``bf16_tol``) and f32 against
+    the CPU in f32, held to the ZOO_* limits."""
+    runs = {name: zoo_probs(torch, build(dtype, device), x, device)
+            for name, dtype, device in (
+                ("bf16", None, "cuda"), ("f32", torch.float32, "cuda"),
+                ("cpu", torch.float32, "cpu"))}
+    ref = runs["cpu"]
+    labels = ref.argmax(axis=1)
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > ZOO_BF16_MARGIN
+    dp = float(np.abs(runs["bf16"] - ref).max())
+    dp32 = float(np.abs(runs["f32"] - ref).max())
+    agree = runs["bf16"].argmax(axis=1) == labels
+    spread = float(np.ptp(ref, axis=0).max())
+    log(f"zoo serving {what}: card bf16 vs CPU f32 on {len(x)} inputs max "
+        f"|dprob| {dp:.3e} (tol {bf16_tol}), labels agree on "
+        f"{int(agree[clear].sum())} of {int(clear.sum())} clear; card f32 "
+        f"{dp32:.3e} (tol {ZOO_F32_PROB_TOL}); CPU spread {spread:.4f}")
+    check(bool(np.isfinite(ref).all()) and dp <= bf16_tol
+          and bool(agree[clear].all()),
+          f"zoo {what}: bf16 card run disagrees with the CPU f32 run")
+    check(dp32 <= ZOO_F32_PROB_TOL
+          and bool((runs["f32"].argmax(axis=1) == labels).all()),
+          f"zoo {what}: f32 card run disagrees with the CPU f32 run")
+    return {"dprob_bf16": dp, "dprob_f32": dp32, "spread": spread,
+            "clear": int(clear.sum()), "bf16_tol": bf16_tol}
+
+
+def check_seeded_spread(what: str, res: dict) -> None:
+    """Seeded outputs must move by more than twice the bf16 limit across
+    the inputs, and some margin must clear ZOO_BF16_MARGIN."""
+    check(res["spread"] > 2 * res["bf16_tol"] and res["clear"] > 0,
+          f"zoo {what}: the seeded outputs barely depend on the input "
+          f"(spread {res['spread']:.4f}, {res['clear']} clear margins)")
+
+
+def zoo_experiment_checks(root: Path, res: dict, name: str,
+                          want_dir: str) -> Path:
+    """The experiment-dir contract of the JAX trainers."""
+    run = Path(res["experiment_path"])
+    check(run.parent.parent == root and run.parent.name == want_dir,
+          f"{name}: experiment dir {run}, expected {root / want_dir}")
+    config = json.loads((run / "config.json").read_text())
+    check(set(config) == {"model", "training", "data"}
+          and config["training"]["epochs"] == ZOO_EPOCHS,
+          f"{name}: config {str(config)[:300]}")
+    tags = [json.loads(line)["tag"] for line in
+            (run / "logs" / "scalars.jsonl").read_text().splitlines()]
+    want = ["train_loss", "train_acc", "train_f1", "val_loss", "val_acc",
+            "val_f1", "Learning_Rate/Group_0"] * ZOO_EPOCHS
+    check(tags == want, f"{name}: scalar tags {tags}")
+    summary = json.loads((run / "experiment_summary.json").read_text())
+    check(set(summary) == {"experiment_name", "run_id", "duration_seconds",
+                           "final_metrics", "config"},
+          f"{name}: summary keys {sorted(summary)}")
+    check((run / "checkpoints" / "last_model.pt").exists()
+          and (run / "logs" / f"confusion_epoch{ZOO_EPOCHS}.npy").exists(),
+          f"{name}: no last checkpoint or final confusion matrix")
+    return run
+
+
+def zoo_train(torch, dev_info, name: str, main_fn, argv, n: int,
+              batch: int) -> tuple:
+    """One trainer run with the counts set to 0 just before it: (result,
+    launches, the rate line's numbers)."""
+    clock = LineClock(sys.stdout)
+    reset_kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(clock):
+        res = main_fn(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(not any(launches.values()),
+          f"{name}: launched kernels {launches} (18-36 latent tokens and "
+          f"TimmViT's plain attention take no kernel; no encoder runs)")
+    steps = -(-n // batch)
+    epochs = len(clock.times)
+    start = clock.loaded if clock.loaded is not None else t0
+    t = clock.times[-1] - (clock.times[-2] if epochs > 1 else start)
+    rate = {"steps_per_s": steps / t, "samples_per_s": n / t,
+            "epoch_s": t, "wall_s": wall}
+    log(f"zoo training {name} on {dev_info['card']}: epoch {epochs} "
+        f"{steps / t:.2f} steps/s, {n / t:.1f} samples/s (batch {batch}, "
+        f"{steps} steps, {t:.3f} s between "
+        f"{'the epoch lines' if epochs > 1 else 'the image store and the epoch line'}"
+        f", evaluation and checkpoint writes included; the call "
+        f"{wall:.2f} s), launches {launches}")
+    return res, launches, rate
+
+
+def phase_zoo(torch, dev_info, root: Path) -> dict:
+    """The zoo's trainer CLIs on phase 5's packs and faces, each run's last
+    checkpoint served, and the LatentCNN lockstep check."""
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
+    from fer_vit_tpu_torch.interop.from_jax import psp_state_dict_from_jax
+    from fer_vit_tpu_torch.models import create_hybrid_latent_vit
+    from fer_vit_tpu_torch.serve import Predictor
+    from fer_vit_tpu_torch.train import vit_fer
+    import importlib
+
+    packs = {split: root / f"latents_{split}" for split in ("train", "val")}
+    npz = write_timm_small_npz(torch, root / "vit_small_seeded.npz")
+    dirs = root / "directions_seeded.npz"
+    np.savez(dirs, directions=np.random.default_rng(32).normal(
+        size=(7, 18, 512)).astype(np.float32), seq_len=18, latent_dim=512,
+        method="seeded")
+    with np.load(packs["val"] / "latents_pack_0000.npz") as z:
+        w_all = z["latents"]
+        w_val = w_all[::SERVE_CPU_STRIDE]
+        paths = z["paths"][::SERVE_CPU_STRIDE].tolist()
+    from fer_vit_tpu_torch.data.generate_latents import _load_image
+
+    imgs = np.stack([_load_image(p) for p in paths]).astype(np.uint8)
+    psp_sd = psp_state_dict_from_jax(psp_jax_variables())
+    psp = {"cuda": EncoderWrapper(psp_sd),
+           "cpu": EncoderWrapper(psp_sd, dtype=torch.float32, device="cpu")}
+    n, n_val = 7 * PROD_TRAIN_PER_CLASS, 7 * PROD_VAL_PER_CLASS
+    exp_root = root / "zoo_experiments"
+    out = {"launches": {}, "rates": {}, "serving": {}}
+    serve_launches = dict.fromkeys(KERNEL_META, 0)
+
+    for i, (name, module, extra, want_dir) in enumerate(ZOO_RUNS):
+        mod = importlib.import_module(f"fer_vit_tpu_torch.train.{module}")
+        argv = ["--latent_train_dir", str(packs["train"]),
+                "--latent_val_dir", str(packs["val"]), "--epochs",
+                str(ZOO_EPOCHS), "--experiments_dir", str(exp_root / str(i)),
+                *(a.format(npz=npz, dirs=dirs) for a in extra)]
+        res, launches, rate = zoo_train(
+            torch, dev_info, name,
+            lambda a, mod=mod: mod.main(mod.build_parser().parse_args(a)),
+            argv, n, 64)
+        hist = res["history"]
+        check(len(hist) == ZOO_EPOCHS
+              and all(math.isfinite(v) for h in hist for v in h.values()),
+              f"{name}: history {hist}")
+        run = zoo_experiment_checks(exp_root / str(i), res, name, want_dir)
+        out["launches"][f"zoo {name}"] = launches
+        out["rates"][name] = rate
+        ckpt = run / "checkpoints" / "last_model.pt"
+        config = json.loads((run / "config.json").read_text())["model"]
+
+        if name == "hybrid adapter":
+            # freezing is an LR multiplier of 0: the trunk is bit for bit
+            # the fresh init the CLI built (seed 42), the adapters moved
+            fresh = create_hybrid_latent_vit(
+                model_size="small", use_adapter=True,
+                generator=torch.Generator().manual_seed(42)).state_dict()
+            trained = torch.load(ckpt, map_location="cpu",
+                                 weights_only=True)["state"]["model"]
+            trunk = [k for k in fresh if k.startswith("transformer.")]
+            check(all(torch.equal(trained[k], fresh[k]) for k in trunk)
+                  and not torch.equal(trained["adapters.0.adapter.0.weight"],
+                                      fresh["adapters.0.adapter.0.weight"]),
+                  "hybrid adapter: a frozen trunk parameter moved, or the "
+                  "adapters did not")
+            log(f"zoo {name}: the {len(trunk)} trunk tensors are the fresh "
+                f"init's, bit for bit; the adapters moved")
+        if name == "hybrid pretrained":
+            # the graft: the trunk and the interpolated positions start
+            # from the converted timm weights and moved by at most about
+            # lr per step
+            from fer_vit_tpu_torch.interop.from_jax import load_npz_variables
+            from fer_vit_tpu_torch.models.hybrid_latent_vit import (
+                interpolate_pos_embed)
+
+            vit = load_npz_variables(str(npz))["params"]
+            trained = torch.load(ckpt, map_location="cpu",
+                                 weights_only=True)["state"]["model"]
+            bound = 2 * ZOO_EPOCHS * -(-n // 64) * 1e-4
+            d_qkv = float((trained["transformer.11.attn.qkv.weight"]
+                           - torch.from_numpy(vit["blocks_11"]["attn"]["qkv"]
+                                              ["kernel"].T)).abs().max())
+            d_pos = float((trained["pos_embed"] - torch.from_numpy(
+                interpolate_pos_embed(vit["pos_embed"], 18))).abs().max())
+            log(f"zoo {name}: block 11's qkv {d_qkv:.3e} and the 196 -> 18 "
+                f"positions {d_pos:.3e} from the converted timm weights "
+                f"(bound {bound:.1e})")
+            check(d_qkv <= bound and d_pos <= bound,
+                  f"{name}: the trunk did not start from the graft")
+        if name == "expression-aware concat":
+            # as the JAX loader: the config has no seq_len, so the
+            # checkpoint rebuilds at 18 tokens and its 37 positions do not
+            # fit
+            try:
+                Predictor.from_checkpoint(str(ckpt), psp=psp["cuda"])
+            except RuntimeError as e:
+                check("pos_embed" in str(e), f"{name}: {e}")
+                log(f"zoo {name}: load_model refuses the 37-position "
+                    f"checkpoint, as the JAX loader does")
+                continue
+            check(False, f"{name}: a concat checkpoint loaded at 18 tokens")
+
+        # the last checkpoint through Predictor.from_checkpoint on the card:
+        # the whole latent route on the 14 images
+        reset_kernel_counts()
+        pred = Predictor.from_checkpoint(str(ckpt), psp=psp["cuda"],
+                                         batch_size=len(imgs))
+        labels, probs = pred.predict(imgs)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        check(pred.describe()["route"] == "latent"
+              and bool(np.isfinite(probs).all())
+              and bool(np.allclose(probs.sum(axis=1), 1.0, atol=1e-5))
+              and counts == {**dict.fromkeys(KERNEL_META, 0), K1_SM90: 24},
+              f"{name}: served {pred.describe()}, launches {counts}")
+        for k in serve_launches:
+            serve_launches[k] += counts[k]
+
+        def from_ckpt(dtype, device, ckpt=ckpt):
+            return Predictor.from_checkpoint(
+                str(ckpt), psp=psp[device], dtype=dtype,
+                device=device).model
+
+        m = model_from_config(dict(config, dropout=0.0), torch.float32)
+        m.load_state_dict(seeded_state_dict(torch, m.state_dict(), 40 + i))
+        seeded = calibrated(torch, m, w_all)
+
+        def from_seed(dtype, device, config=config, seeded=seeded):
+            m = model_from_config(config, dtype)
+            m.load_state_dict(seeded, strict=True)
+            return m
+
+        tol = ZOO_BF16_PROB_TOL["cnn" if module == "train_latent_cnn"
+                                else "transformer"]
+        out["serving"][name] = {
+            "trained": zoo_card_vs_cpu(torch, f"{name}, trained", from_ckpt,
+                                       w_val, tol),
+            "seeded": zoo_card_vs_cpu(torch, f"{name}, seeded", from_seed,
+                                      w_val, tol)}
+        check_seeded_spread(name, out["serving"][name]["seeded"])
+    out["launches"]["zoo serving"] = serve_launches
+
+    # vit_fer: ViT-B/16 on the faces
+    out_dir = root / "vit_fer"
+    argv = ["--train_dir", str(root / "train"), "--test_dir",
+            str(root / "val"), "--out_dir", str(out_dir), *VIT_FER_ARGS]
+    res, launches, rate = zoo_train(
+        torch, dev_info, "vit_fer",
+        lambda a: vit_fer.main(vit_fer.build_parser().parse_args(a)), argv,
+        n, 32)
+    check(len(res["train_losses"]) == 1
+          and all(math.isfinite(v) for v in res["train_losses"]
+                  + res["test_accuracies"]),
+          f"vit_fer: history {res}")
+    files = sorted(f.name for f in out_dir.iterdir())
+    check(files in (["last_model.pt", "metrics.csv"],
+                    ["last_model.pt", "loss_acc.png", "metrics.csv"]),
+          f"vit_fer: out dir {files}")
+    rows = (out_dir / "metrics.csv").read_text().splitlines()
+    check(rows[0] == "Epoch,Train Loss,Test Accuracy"
+          and rows[1].startswith("1,"), f"vit_fer: metrics.csv {rows}")
+    out["launches"]["zoo vit_fer"] = launches
+    out["rates"]["vit_fer"] = rate
+    log(f"zoo vit_fer: out dir {files}")
+    from fer_vit_tpu_torch.models import create_timm_vit
+
+    trained = torch.load(out_dir / "last_model.pt", map_location="cpu",
+                         weights_only=True)["state"]["model"]
+    faces = np.stack([_load_image(p, IMAGE_SIZE) for p in paths]).astype(
+        np.uint8)
+    x = vit_fer.grayscale_normalize(torch.from_numpy(faces)).numpy()
+    base, _ = create_timm_vit("base", dtype=torch.float32)
+    base.load_state_dict(seeded_state_dict(torch, trained, 49))
+    seeded = calibrated(torch, base, x)
+    for which, sd in (("trained", trained), ("seeded", seeded)):
+        base.load_state_dict(sd, strict=True)
+
+        def build(dtype, device):
+            m = copy.deepcopy(base)
+            m.dtype = dtype
+            return m
+
+        r = zoo_card_vs_cpu(torch, f"vit_fer, {which}", build, x,
+                            ZOO_BF16_PROB_TOL["transformer"])
+        out["serving"].setdefault("vit_fer", {})[which] = r
+    check_seeded_spread("vit_fer", out["serving"]["vit_fer"]["seeded"])
+
+    zoo_lockstep_check(torch, packs["train"])
+    return out
+
+
+def zoo_lockstep_check(torch, train_dir: Path) -> None:
+    """LatentCNN "standard" at full width through the harness: ZOO_DET_STEPS
+    steps, the last batch padded, on the CPU in f32 and on the card in f32
+    and bf16, each card run from the CPU's state (model, running
+    statistics, AdamW moments) before every step."""
+    from fer_vit_tpu_torch.data.latent_store import LatentStore
+    from fer_vit_tpu_torch.models import create_latent_cnn
+    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
+
+    store = LatentStore.load(str(train_dir))
+    sd = create_latent_cnn("standard", dropout=0.0,
+                           generator=torch.Generator().manual_seed(33)
+                           ).state_dict()
+    cfg = TrainConfig(batch_size=ZOO_DET_BATCH, mixup=1.0,
+                      clean_metrics_forward=True, label_smoothing=0.1)
+    lr = cfg.lr
+    rng = np.random.default_rng(34)
+    batches = []
+    for s in range(ZOO_DET_STEPS):
+        idx = rng.choice(len(store), ZOO_DET_BATCH, replace=False)
+        x = store.latents[idx].copy()
+        y = store.labels[idx].astype(np.int64)
+        n_real = ZOO_DET_LAST_REAL if s == ZOO_DET_STEPS - 1 else ZOO_DET_BATCH
+        x[n_real:], y[n_real:] = 0.0, 0
+        batches.append((x, y, np.arange(ZOO_DET_BATCH) < n_real,
+                        float(np.float32(rng.beta(1.0, 1.0))),
+                        rng.permutation(ZOO_DET_BATCH)))
+    t0 = time.perf_counter()
+    runs = {}
+    # "ulp": the CPU again on the input scaled by 1 + 2^-23
+    for name, device, dtype in (("cpu", "cpu", torch.float32),
+                                ("ulp", "cpu", torch.float32),
+                                ("f32", None, torch.float32),
+                                ("bf16", None, None)):
+        model = create_latent_cnn("standard", dropout=0.0, dtype=dtype)
+        model.load_state_dict(sd, strict=True)
+        h = Harness(model=model, cfg=cfg, device=device)
+        runs[name] = {"h": h, "state": h.init_state(), "loss": [],
+                      "grads": [], "stats": []}
+    stat_names = [k for k in sd if k.endswith(("running_mean",
+                                               "running_var"))]
+    for x, y, mask, lam, perm0 in batches:
+        start = copy.deepcopy(runs["cpu"]["state"].state_dict())
+        for name, run in runs.items():
+            h, state = run["h"], run["state"]
+            if name != "cpu":
+                # a copy each: on the CPU the optimizer keeps the loaded
+                # tensors themselves and its step updates them in place
+                state.load_state_dict(copy.deepcopy(start))
+            dev = h.device
+            xs = x * np.float32(1 + 2 ** -23) if name == "ulp" else x
+            stats = h.train_step(state, torch.from_numpy(xs).to(dev),
+                                 torch.from_numpy(y).to(dev),
+                                 torch.from_numpy(mask).to(dev), lr, lam,
+                                 torch.from_numpy(perm0).to(dev))
+            run["loss"].append(float(stats["loss_sum"]) / float(stats["n"]))
+            run["grads"].append(torch.cat(
+                [p.grad.float().flatten().cpu()
+                 for p in state.model.parameters()]))
+            msd = state.model.state_dict()
+            run["stats"].append({k: msd[k].float().cpu().clone()
+                                 for k in stat_names})
+    runs = {k: dict(v, loss=np.asarray(v["loss"])) for k, v in runs.items()}
+    what = (f"zoo lockstep (LatentCNN standard, {ZOO_DET_STEPS} steps, batch "
+            f"{ZOO_DET_BATCH}, last batch {ZOO_DET_LAST_REAL} real rows, "
+            f"dropout 0, fixed mixup draws)")
+    d_ulp, g_ulp = determinism_errors(runs, "ulp")
+    d_f32, g_f32 = determinism_errors(runs, "f32")
+    d_b16, _ = determinism_errors(runs, "bf16")
+    g_lim = np.maximum(DET_F32_GRAD_RTOL, ZOO_ULP_FACTOR * g_ulp)
+
+    def stat_diffs(name):
+        return [{k: float((got[k] - ref[k]).abs().max()) for k in stat_names}
+                for got, ref in zip(runs[name]["stats"],
+                                    runs["cpu"]["stats"])]
+
+    s_ulp, s_f32 = stat_diffs("ulp"), stat_diffs("f32")
+    s_ratio = 0.0
+    for sf, su, ref in zip(s_f32, s_ulp, runs["cpu"]["stats"]):
+        for k, d in sf.items():
+            limit = max(ZOO_STAT_RTOL * float(ref[k].abs().max()) + 0.25 * lr,
+                        ZOO_ULP_FACTOR * su[k])
+            s_ratio = max(s_ratio, d / limit)
+    log(f"{what} ({time.perf_counter() - t0:.1f} s): CPU f32 losses "
+        f"{np.round(runs['cpu']['loss'], 6).tolist()}; per step, the CPU on "
+        f"the input scaled by 1 + 2^-23: loss {[f'{v:.3e}' for v in d_ulp]}"
+        f", gradients {[f'{v:.3e}' for v in g_ulp]}; card f32: loss "
+        f"{[f'{v:.3e}' for v in d_f32]}, gradients "
+        f"{[f'{v:.3e}' for v in g_f32]} (limits "
+        f"{[f'{v:.3e}' for v in g_lim]}); card bf16 loss "
+        f"{[f'{v:.3e}' for v in d_b16]}; running statistics card f32 at "
+        f"most {s_ratio:.3f} of their limit")
+    check(bool(np.isfinite(runs["cpu"]["loss"]).all())
+          and d_f32.max() <= DET_F32_LOSS_RTOL
+          and bool((g_f32 <= g_lim).all())
+          and d_b16.max() <= DET_BF16_LOSS_RTOL and s_ratio <= 1.0,
+          f"{what}: training steps on the card disagree with the CPU")
 
 if __name__ == "__main__":
     try:

@@ -15,9 +15,12 @@ LatentViT), and :func:`load_model` reads two containers:
 
 Both are named ``*.pt``, so the container is sniffed, not the suffix. A
 torch file without the port's keys is a reference-format checkpoint of the
-upstream torch code; its reader is not ported yet and it raises. So do the
-configs of the model kinds the port lacks (HybridLatentViT, the latent
-CNNs, LatentViTv2). The evaluator CLI itself is not ported yet.
+upstream torch code; its reader is not ported yet and it raises. Every
+latent kind of the JAX ``model_from_config`` is built (LatentViT,
+LatentViTv2, the four latent CNNs with their BatchNorm statistics,
+HybridLatentViT with or without adapters; an ExpressionAwareViT checkpoint
+has ``model_size`` and loads as the plain HybridLatentViT, as in JAX). The
+evaluator CLI itself is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,15 +32,15 @@ from typing import Optional
 
 import torch
 
-from fer_vit_tpu_torch.models import LatentViT
+from fer_vit_tpu_torch.models import (LatentViT, LatentViTv2,
+                                      create_hybrid_latent_vit,
+                                      create_latent_cnn)
 
 REFERENCE_FORMAT = (
     "reference-format torch checkpoints (upstream torch code) are not "
     "ported yet (ROADMAP.md queue 1 item 5, interop/torch_state.py); this "
     "loader reads the port's own torch checkpoints and the JAX trainers' "
     "msgpack checkpoints")
-NOT_PORTED = ("{} checkpoints are not ported yet (ROADMAP.md queue 1 item 4, "
-              "the rest of the model zoo)")
 IMAGE_KINDS = ("image_vit", "timm_vit")
 
 
@@ -80,9 +83,26 @@ def model_from_config(model_config: dict,
         from fer_vit_tpu_torch.eval import evaluate_image_vit
 
         return evaluate_image_vit.model_from_config(model_config, dtype)
-    if kind != "latent_vit":
-        raise NotImplementedError(NOT_PORTED.format(kind))
-    return LatentViT(
+    if kind == "hybrid_latent_vit":
+        return create_hybrid_latent_vit(
+            latent_dim=model_config.get("latent_dim", 512),
+            seq_len=model_config.get("seq_len", 18),
+            model_size=model_config.get("model_size", "small"),
+            num_classes=model_config["num_classes"],
+            use_adapter=bool(model_config.get("use_adapter")),
+            adapter_dim=model_config.get("adapter_dim") or 64,
+            dtype=dtype,
+        )
+    if kind == "latent_cnn":
+        return create_latent_cnn(
+            model_config["model_type"],
+            latent_dim=model_config.get("latent_dim", 512),
+            seq_len=model_config.get("seq_len", 18),
+            num_classes=model_config["num_classes"],
+            dropout=model_config.get("dropout", 0.3),
+            dtype=dtype,
+        )
+    common = dict(
         latent_dim=model_config.get("latent_dim", 512),
         seq_len=model_config.get("seq_len", 18),
         embed_dim=model_config.get("embed_dim", 512),
@@ -93,6 +113,15 @@ def model_from_config(model_config: dict,
         dropout=model_config.get("dropout", 0.1),
         dtype=dtype,
     )
+    if kind == "latent_vit_v2":
+        return LatentViTv2(
+            use_lwn=bool(model_config.get("use_lwn")),
+            use_lwn_residual=bool(model_config.get("use_lwn_residual")),
+            use_spe=bool(model_config.get("use_spe")),
+            use_leam=bool(model_config.get("use_leam")),
+            **common,
+        )
+    return LatentViT(**common)
 
 
 def _is_torch_checkpoint(path: str) -> bool:
@@ -129,10 +158,12 @@ def _read_msgpack_checkpoint(path: str) -> dict:
     raw = read_checkpoint(path)
     config = raw["config"]
     model_config = config.get("model", config)
+    # the BatchNorm models' running statistics are in batch_stats
+    variables = {"params": raw["state"]["params"],
+                 "batch_stats": raw["state"].get("batch_stats") or {}}
     return {"epoch": raw["epoch"], "metrics": raw["metrics"],
             "config": config, "run_id": raw["run_id"],
-            "state_dict": state_dict_from_jax(model_config,
-                                              raw["state"]["params"])}
+            "state_dict": state_dict_from_jax(model_config, variables)}
 
 
 def load_model(checkpoint_path: str, with_meta: bool = False,

@@ -15,7 +15,12 @@ imports JAX) and writes the port's state dict:
   reference ImageViT names (the same file).
 * :func:`timm_vit_state_dict_from_jax`: ``TimmViT`` params -> timm's names,
   the inverse of ``fer_vit_tpu/encoders/convert_timm.py``.
-* :func:`state_dict_from_jax`: one of the three, picked from a checkpoint's
+* :func:`latent_vit_v2_state_dict_from_jax`,
+  :func:`latent_cnn_state_dict_from_jax` (params and ``batch_stats``) and
+  :func:`hybrid_latent_vit_state_dict_from_jax`: the rest of the latent
+  model zoo -> the reference names of
+  ``fer_vit_tpu/interop/torch_state.py``'s tables.
+* :func:`state_dict_from_jax`: one of them, picked from a checkpoint's
   model config.
 
 It also keeps its own copy of the ``.npz`` (de)serialisation that
@@ -46,9 +51,11 @@ def _t(a) -> Tensor:
 
 
 def _conv(sd: Dict[str, Tensor], prefix: str, node: Mapping) -> None:
-    """HWIO kernel (kh, kw, I, O) -> OIHW weight, plus the bias if any."""
-    sd[f"{prefix}.weight"] = _t(np.transpose(_np(node["kernel"]),
-                                             (3, 2, 0, 1)))
+    """HWIO kernel (kh, kw, I, O) -> OIHW weight, or a 1-D (k, I, O) kernel
+    -> (O, I, k), plus the bias if any."""
+    k = _np(node["kernel"])
+    sd[f"{prefix}.weight"] = _t(np.transpose(
+        k, (3, 2, 0, 1) if k.ndim == 4 else (2, 1, 0)))
     if "bias" in node:
         sd[f"{prefix}.bias"] = _t(node["bias"])
 
@@ -205,25 +212,155 @@ def timm_vit_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
     return sd
 
 
+def _prefixed(prefix: str, sd: Mapping[str, Tensor]) -> Dict[str, Tensor]:
+    return {f"{prefix}{k}": v for k, v in sd.items()}
+
+
+def preprocessing_state_dict_from_jax(p: Mapping) -> Dict[str, Tensor]:
+    """The w+ preprocessing modules present among ``p``'s entries (``spe``,
+    ``lwn``, ``leam``) -> ``spe.{group,layer}_embed.weight``,
+    ``lwn.norms.{i}.weight/bias`` (the rows of the stacked (L, D) scale and
+    bias), ``lwn.gate``, ``leam.layer_weights``."""
+    sd: Dict[str, Tensor] = {}
+    if "spe" in p:
+        sd["spe.group_embed.weight"] = _t(p["spe"]["group_embed"])
+        sd["spe.layer_embed.weight"] = _t(p["spe"]["layer_embed"])
+    if "lwn" in p:
+        scale, bias = _np(p["lwn"]["scale"]), _np(p["lwn"]["bias"])
+        for i in range(scale.shape[0]):
+            sd[f"lwn.norms.{i}.weight"] = _t(scale[i])
+            sd[f"lwn.norms.{i}.bias"] = _t(bias[i])
+        if "gate" in p["lwn"]:
+            sd["lwn.gate"] = _t(p["lwn"]["gate"])
+    if "leam" in p:
+        sd["leam.layer_weights"] = _t(p["leam"]["layer_weights"])
+    return sd
+
+
+def latent_vit_v2_state_dict_from_jax(params: Mapping) -> Dict[str, Tensor]:
+    """JAX ``LatentViTv2`` params -> the port's ``LatentViTv2`` state dict:
+    ``backbone.*`` (LatentViT's names) and the preprocessing modules'
+    (:func:`preprocessing_state_dict_from_jax`)."""
+    p = params.get("params", params)
+    sd = _prefixed("backbone.", latent_vit_state_dict_from_jax(p["backbone"]))
+    sd.update(preprocessing_state_dict_from_jax(p))
+    return sd
+
+
+def latent_cnn_type(params: Mapping) -> str:
+    """Which latent CNN a JAX params tree belongs to, from its top-level
+    names (``fer_vit_tpu/models/latent_cnn.py``)."""
+    p = params.get("params", params)
+    if "input_proj" in p:
+        return "deep"
+    if "res_0" in p:
+        return "standard"
+    if "fc1" in p:
+        return "light"
+    return "2d"
+
+
+def latent_cnn_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
+    """JAX latent CNN variables (``params`` and ``batch_stats``) -> the
+    port's state dict, with the reference names of
+    ``fer_vit_tpu/interop/torch_state.py::_latent_cnn_entries``; the
+    ``batch_stats`` ``mean``/``var`` become ``running_mean``/``running_var``.
+    The CNN's type comes from the tree (:func:`latent_cnn_type`)."""
+    p = variables["params"]
+    st = variables.get("batch_stats", {})
+    kind = latent_cnn_type(p)
+    sd: Dict[str, Tensor] = {}
+
+    def conv_bn(t: str, name: str, bn: str = "bn") -> None:
+        _conv(sd, f"{t}.conv", p[name]["conv"])
+        _bn(sd, f"{t}.{bn}", p[name], st.get(name, {}), bn)
+
+    def res(t: str, name: str) -> None:
+        for i in (1, 2):
+            _conv(sd, f"{t}.conv{i}", p[name][f"conv{i}"])
+            _bn(sd, f"{t}.bn{i}", p[name], st.get(name, {}), f"bn{i}")
+
+    def head(at) -> None:
+        c, cs = p["classifier"], st.get("classifier", {})
+        _linear(sd, f"classifier.{at[0]}", c["fc1"])
+        _bn(sd, f"classifier.{at[1]}", c, cs, "bn")
+        _linear(sd, f"classifier.{at[2]}", c["fc2"])
+
+    if kind == "standard":
+        n_conv = sum(1 for k in p if re.fullmatch(r"conv_\d+", k))
+        for i in range(n_conv):
+            conv_bn(f"conv_layers.{i}", f"conv_{i}")
+        for i in range(sum(1 for k in p if re.fullmatch(r"res_\d+", k))):
+            res(f"res_blocks.{i}", f"res_{i}")
+        head((1, 2, 5))
+    elif kind == "light":
+        for i in range(3):
+            _conv(sd, f"encoder.{4 * i}", p[f"conv_{i}"])
+            _bn(sd, f"encoder.{4 * i + 1}", p, st, f"bn_{i}")
+        _linear(sd, "classifier.1", p["fc1"])
+        _linear(sd, "classifier.4", p["fc2"])
+    elif kind == "deep":
+        _linear(sd, "input_proj.0", p["input_proj"])
+        _norm(sd, "input_proj.1", p["input_norm"])
+        for s, n_res in enumerate((1, 1, 2)):
+            conv_bn(f"conv_block{s + 1}.0", f"stage{s}_conv")
+            for r in range(n_res):
+                res(f"conv_block{s + 1}.{r + 1}", f"stage{s}_res{r}")
+        _conv(sd, "attention.0", p["attn"])
+        head((0, 1, 4))
+    else:
+        for i, at in enumerate((0, 4, 9)):
+            _conv(sd, f"features.{at}", p[f"conv_{i}"])
+            _bn(sd, f"features.{at + 1}", p, st, f"bn_{i}")
+        head((1, 2, 5))
+    return sd
+
+
+def hybrid_latent_vit_state_dict_from_jax(params: Mapping
+                                          ) -> Dict[str, Tensor]:
+    """JAX ``HybridLatentViT`` params -> the port's state dict, with the
+    reference names (``transformer.{i}`` timm blocks, ``head.0`` norm,
+    ``head.2`` Linear, ``adapters.{i}.adapter.0/2`` and ``alpha``)."""
+    p = params.get("params", params)
+    sd: Dict[str, Tensor] = {"cls_token": _t(p["cls_token"]),
+                             "pos_embed": _t(p["pos_embed"])}
+    _linear(sd, "input_proj", p["input_proj"])
+    blocks = timm_vit_state_dict_from_jax(
+        {k: v for k, v in p.items() if k.startswith("blocks_")})
+    sd.update({k.replace("blocks.", "transformer.", 1): v
+               for k, v in blocks.items()})
+    n_adapters = sum(1 for k in p if re.fullmatch(r"adapters_\d+", k))
+    for i in range(n_adapters):
+        a, t = p[f"adapters_{i}"], f"adapters.{i}"
+        _linear(sd, f"{t}.adapter.0", a["down"])
+        _linear(sd, f"{t}.adapter.2", a["up"])
+        sd[f"{t}.alpha"] = _t(a["alpha"])
+    _norm(sd, "head.0", p["head_norm"])
+    _linear(sd, "head.2", p["head"])
+    return sd
+
+
+# each takes the variables tree (``params``, and ``batch_stats`` where the
+# model has BatchNorms)
 STATE_DICT_FROM_JAX = {
     "latent_vit": latent_vit_state_dict_from_jax,
     "image_vit": image_vit_state_dict_from_jax,
     "timm_vit": timm_vit_state_dict_from_jax,
+    "latent_vit_v2": latent_vit_v2_state_dict_from_jax,
+    "latent_cnn": latent_cnn_state_dict_from_jax,
+    "hybrid_latent_vit": hybrid_latent_vit_state_dict_from_jax,
 }
 
 
 def state_dict_from_jax(model_config: Mapping,
-                        params: Mapping) -> Dict[str, Tensor]:
-    """A checkpoint's model config and params tree -> the port's state dict
-    for the model the config describes
-    (``fer_vit_tpu_torch/eval/evaluate_model.py::model_kind``). The kinds the
-    port does not have yet raise ``NotImplementedError``."""
-    from fer_vit_tpu_torch.eval.evaluate_model import NOT_PORTED, model_kind
+                        variables: Mapping) -> Dict[str, Tensor]:
+    """A checkpoint's model config and variables tree (``params``, and
+    ``batch_stats`` for the BatchNorm models) -> the port's state dict for
+    the model the config describes
+    (``fer_vit_tpu_torch/eval/evaluate_model.py::model_kind``)."""
+    from fer_vit_tpu_torch.eval.evaluate_model import model_kind
 
-    kind = model_kind(model_config)
-    if kind not in STATE_DICT_FROM_JAX:
-        raise NotImplementedError(NOT_PORTED.format(kind))
-    return STATE_DICT_FROM_JAX[kind](params)
+    return STATE_DICT_FROM_JAX[model_kind(model_config)](variables)
 
 
 # -- npz (de)serialisation of a variables tree (as convert_psp.py writes it) --

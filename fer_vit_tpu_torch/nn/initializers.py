@@ -9,7 +9,9 @@ The port's own copy of what it needs from
   in_channels * kh * kw for a convolution;
 * the ViT init of the reference ImageViT: ``trunc_normal_(std=0.02, a=-2,
   b=2)``, whose bounds are absolute (+-100 sigma at std 0.02), so the
-  realised std is ``std``.
+  realised std is ``std``;
+* the latent CNNs' inits: ``kaiming_normal_(mode='fan_out')`` on the convs
+  and N(0, 0.01) on the Linears.
 
 The same seed gives other numbers than the JAX package's ``jax.random``
 keys: what matches is the distribution.
@@ -68,3 +70,19 @@ def vit_linear_init_(m: nn.Linear,
     trunc_normal_(m.weight, 0.02, generator)
     with torch.no_grad():
         m.bias.zero_()
+
+
+def kaiming_normal_fan_out_init_(w: torch.Tensor,
+                                 generator: Optional[torch.Generator]) -> None:
+    """torch ``kaiming_normal_(mode='fan_out', nonlinearity='relu')`` (the
+    latent CNNs' conv init): N(0, 2 / fan_out), fan_out = out_channels *
+    the kernel's size (``w.numel() / w.shape[1]``), in place."""
+    fan_out = w.numel() // w.shape[1]
+    normal_init_(w, math.sqrt(2.0 / fan_out), generator)
+
+
+def normal_init_(t: torch.Tensor, std: float,
+                 generator: Optional[torch.Generator]) -> None:
+    """N(0, std), in place."""
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=generator) * std)

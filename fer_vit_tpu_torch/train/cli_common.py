@@ -104,12 +104,15 @@ def run_latent_training(
     train_store,
     val_store,
     lr_mult=None,
+    init_params_patch=None,
     wd_mask=None,
     lr_group_mults=None,
     device: DeviceLike = None,
 ) -> dict:
     """Common tail of every latent trainer: harness, logging, fit, summary.
-    ``device`` defaults to CUDA and raises without it."""
+    ``init_params_patch(model)`` (e.g. a pretrained trunk's graft) changes
+    the freshly initialised model in place, after init and before
+    ``--resume``. ``device`` defaults to CUDA and raises without it."""
     class_weights = (
         train_store.class_weights(cfg.num_classes)
         if args.use_class_weights else None
@@ -125,6 +128,8 @@ def run_latent_training(
                       device=device)
     print(f"Using device: {harness.device}")
     state = harness.init_state()
+    if init_params_patch is not None:
+        init_params_patch(state.model)
     state, start_epoch, initial_best, sched_state = load_resume(args, state)
 
     logger = ExperimentLogger(experiment_name, base_dir=args.experiments_dir)

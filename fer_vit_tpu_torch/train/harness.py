@@ -26,12 +26,21 @@ train/train_latent_vit.py:108-148), best checkpoint on val macro-F1.
 * Per-parameter LR multipliers (``lr_mult``) and the weight-decay mask
   (``wd_mask``), both keyed by parameter name, become the optimizer's param
   groups; each epoch sets every group's LR to the epoch's LR times its
-  multiplier.
+  multiplier. A multiplier of 0 freezes: the forward is the same, only the
+  update differs.
+* Models whose ``forward`` takes ``mask`` (the BatchNorm nets) get the
+  batch's row mask in every training forward, so the pad rows of the last
+  batch stay out of the batch statistics (as the JAX harness decides by
+  signature). Training forwards run in ``train()`` mode and update the
+  running statistics, the clean post-step forward too (the JAX step
+  threads the loss forward's statistics into it and keeps what it
+  returns); evaluation and predictions run in ``eval()`` mode on them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -169,6 +178,15 @@ class Harness:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        try:
+            params = inspect.signature(self.model.forward).parameters
+        except (TypeError, ValueError):
+            params = {}
+        self.accepts_mask = "mask" in params
+
+    def _train_forward(self, model: nn.Module, x: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+        return model(x, mask=mask) if self.accepts_mask else model(x)
 
     # -- state --------------------------------------------------------------
 
@@ -223,7 +241,7 @@ class Harness:
         yb_perm = yb[perm]
 
         model.train()
-        logits = model(x_mixed)
+        logits = self._train_forward(model, x_mixed, mask)
         loss_a = cross_entropy(logits, yb, class_weights,
                                cfg.label_smoothing, mask)
         # after the redirect both label streams share the row's own
@@ -246,8 +264,9 @@ class Harness:
         with torch.no_grad():
             if clean_fwd:
                 # clean post-step forward in train mode for the train
-                # metrics (reference: train/train_latent_vit.py:138-141)
-                preds = model(xb).argmax(dim=-1)
+                # metrics (reference: train/train_latent_vit.py:138-141);
+                # it updates the running statistics a second time
+                preds = self._train_forward(model, xb, mask).argmax(dim=-1)
             else:
                 preds = logits.argmax(dim=-1)
             n_valid = mask.float().sum()

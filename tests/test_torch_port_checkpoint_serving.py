@@ -311,10 +311,22 @@ def test_reference_format_torch_checkpoints_raise(tmp_path, what):
     ({"use_leam": True}, "latent_vit_v2"),
 ])
 def test_model_kinds_not_ported_raise(config, kind):
-    with pytest.raises(NotImplementedError, match=f"{kind}.*queue 1 item 4"):
-        model_from_config(config)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        state_dict_from_jax(config, {})
+    """The kinds that were refused before the model zoo was ported are
+    built now; an unknown latent CNN type raises as in the JAX package,
+    and a params tree without the kind's entries raises in the bridge."""
+    from fer_vit_tpu_torch.eval.evaluate_model import model_kind
+
+    assert model_kind(config) == kind
+    if kind == "latent_cnn":
+        with pytest.raises(ValueError, match="Unknown model type"):
+            model_from_config(config)
+    else:
+        model = model_from_config(config)
+        assert type(model).__name__ == {
+            "hybrid_latent_vit": "HybridLatentViT",
+            "latent_vit_v2": "LatentViTv2"}[kind]
+    with pytest.raises(KeyError):
+        state_dict_from_jax(config, {"params": {}})
 
 
 def test_image_vit_presets_load_from_both_containers():

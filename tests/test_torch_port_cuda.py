@@ -428,3 +428,66 @@ def test_from_checkpoint_on_the_card(smoke, tmp_path, route):
     d_labels, d_probs = direct.predict(imgs)
     np.testing.assert_array_equal(labels, d_labels)
     np.testing.assert_array_equal(probs, d_probs)
+
+
+# -- the model zoo: masked BatchNorm and a latent CNN, card against CPU -------
+
+# f32 on the card (TF32 off) against f32 on the CPU: the same arithmetic in
+# other summation orders
+ZOO_F32_TOL = 1e-4
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_masked_batchnorm_card_matches_cpu(smoke, training):
+    """Output and running statistics of MaskedBatchNorm with a partial mask
+    (train mode) and on its statistics (eval mode), card against CPU."""
+    from fer_vit_tpu_torch.nn.masked_batchnorm import MaskedBatchNorm
+
+    g = torch.Generator().manual_seed(0)
+    x = 2.0 + torch.randn(8, 64, 18, generator=g)
+    mask = torch.arange(8) < 5
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = MaskedBatchNorm(64).to(dev).train(training)
+        with torch.no_grad():
+            m.running_mean.fill_(0.3)
+            m.weight.mul_(1.5)
+        y = m(x.to(dev), mask.to(dev))
+        outs[dev] = (y.cpu(), m.running_mean.cpu(), m.running_var.cpu())
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=ZOO_F32_TOL,
+                                   atol=ZOO_F32_TOL)
+
+
+@pytest.mark.parametrize("model_type", ["standard", "2d"])
+def test_latent_cnn_card_matches_cpu(smoke, model_type):
+    """A full-width latent CNN's logits in train mode (dropout 0, a
+    partial mask) and eval mode, f32 card against f32 CPU, relative to the
+    largest logit; the running statistics after the train forward."""
+    from fer_vit_tpu_torch.models import create_latent_cnn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    cpu = create_latent_cnn(model_type, dropout=0.0, dtype=torch.float32,
+                            generator=g)
+    card = create_latent_cnn(model_type, dropout=0.0, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+    x = torch.randn(16, 18, 512, generator=g)
+    mask = torch.arange(16) < 11
+    for training in (True, False):
+        ref = cpu.train(training)(x, mask=mask)
+        got = card.train(training)(x.cuda(), mask=mask.cuda()).cpu()
+        scale = float(ref.abs().max())
+        # train mode: batch moments over 11 rows magnify rounding
+        # differences (tests/test_torch_port_model_zoo.py reads 3.1e-4 of
+        # the largest logit against JAX on the CPU)
+        tol = (1e-3 if training else ZOO_F32_TOL) * scale
+        torch.testing.assert_close(got, ref.detach(), rtol=0, atol=tol)
+        if training:
+            ref_sd, got_sd = cpu.state_dict(), card.state_dict()
+            for k in ref_sd:
+                if k.endswith(("running_mean", "running_var")):
+                    torch.testing.assert_close(
+                        got_sd[k].cpu(), ref_sd[k], rtol=0,
+                        atol=1e-5 * float(ref_sd[k].abs().max()))

@@ -41,7 +41,13 @@ def test_every_module_imports_with_jax_blocked():
               "interop.flax_msgpack", "models.timm_vit",
               "models.hybrid_latent_vit", "eval.evaluate_model",
               "eval.evaluate_image_vit", "data.image_packs",
-              "train.train_image_vit"):
+              "train.train_image_vit", "nn.preprocessing",
+              "nn.masked_batchnorm", "models.latent_vit_v2",
+              "models.latent_cnn", "models.latent_decomposer",
+              "models.expression_aware_vit", "encoders.convert_timm",
+              "train.train_latent_vit_v2", "train.train_latent_cnn",
+              "train.train_hybrid_latent_vit",
+              "train.train_expression_aware_vit", "train.vit_fer"):
         assert f"fer_vit_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -116,6 +122,39 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
     assert resolve_device("cpu").type == "cpu"
     assert compute_dtype(torch.device("cpu")) == torch.float32
     assert compute_dtype(torch.device("cuda")) == torch.bfloat16
+
+
+def test_zoo_entry_points_need_cuda_unless_asked_for_cpu():
+    """The model zoo's trainers refuse without a card before reading
+    anything; their models build on the CPU."""
+    from fer_vit_tpu_torch.models import (LatentViTv2, create_latent_cnn,
+                                          create_hybrid_latent_vit)
+    from fer_vit_tpu_torch.train import (train_expression_aware_vit,
+                                         train_hybrid_latent_vit,
+                                         train_latent_cnn,
+                                         train_latent_vit_v2, vit_fer)
+    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    latent = ["--latent_train_dir", "x", "--latent_val_dir", "y"]
+    for mod, argv in ((train_latent_vit_v2, latent),
+                      (train_latent_cnn, latent),
+                      (train_hybrid_latent_vit, latent),
+                      (train_expression_aware_vit,
+                       latent + ["--directions_path", "d.npz"]),
+                      (vit_fer, ["--train_dir", "x", "--test_dir", "y"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.main(mod.build_parser().parse_args(argv))
+    for model in (create_latent_cnn("light", latent_dim=8),
+                  LatentViTv2(latent_dim=8, embed_dim=8, depth=1, heads=2,
+                              mlp_dim=8, use_lwn=True),
+                  create_hybrid_latent_vit(latent_dim=8, embed_dim=8,
+                                           depth=1, num_heads=2, mlp_dim=8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Harness(model=model, cfg=TrainConfig())
+        assert Harness(model=model, cfg=TrainConfig(),
+                       device="cpu").device.type == "cpu"
 
 
 def _chip_smoke():
