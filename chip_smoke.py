@@ -83,6 +83,32 @@ Phases, in order; any failure exits non-zero before the result line:
    harness steps of LatentCNN "standard" (the last batch padded), card
    f32 and bf16 against the CPU in f32: losses, gradients and running
    statistics.
+9. eval and analysis, on the artefacts of phases 5, 6 and 8: the latent
+   evaluator's CLI (``fer_vit_tpu_torch.eval.evaluate_model``, batch 32,
+   5 attention figures) over the 112 val w+ on phase 5's LatentViT, phase
+   8's LatentViTv2 and LatentCNN "standard" (both JSON files with the JAX
+   schema, a 7 x 7 confusion matrix summing to 112, no kernel launched),
+   the card in bf16 and f32 against the CPU in f32 on a seeded LatentViT
+   checkpoint, w+/s (the median of 7 passes); the image evaluator's CLI on
+   phase 6's ViT-Small/16 over the 112 val faces at 224 px (12
+   ``flash_attention_sm90`` launches per batch of 32 and none of the
+   others, images/s as the median of 7 passes); phase 5's LatentViT
+   and phase 8's LatentCNN exported to the reference format and loaded
+   back through ``load_model`` and ``Predictor.from_checkpoint`` (logits
+   bit-identical on the card); phase 8's LEAM weights; the SVM directions
+   at FER2013's train size (28,709 seeded w+, 1.06 GB on the card, 500
+   steps, binary and multiclass: seconds, unit norms, train accuracy; the
+   first 3 steps on all rows card f32 against CPU f32 in lockstep, and the
+   same with TF32 products or the schedule a step late, which must fail
+   that check) and the directions CLI on phase 5's packs; SeFa's eigh on a
+   seeded (512, 512) weight, card against CPU, and its verification
+   forward (10 directions x 4 steps x 50 w+) through the seeded LatentViT,
+   card f32 against CPU f32; augmentation of the 448 train w+ along 5
+   directions (9,408 samples, idempotent, within 1 ulp of the CPU); the
+   single-image predictor on ``vit_fer``'s ViT-B/16 (its attention is the
+   plain version, as in JAX: no kernel) over 14 faces, and card against
+   CPU on a seeded, calibrated ViT-B/16; the face tree's class counts.
+   Figures are written where matplotlib and seaborn import.
 
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
@@ -97,8 +123,10 @@ on the CPU in f32.
 Each phase's wall seconds are logged as it ends. Before the kernels line,
 a JSON line gives the launches per kernel on each main path (the two
 serving slices, production, latent training, image training, checkpoint
-serving, each zoo run and the zoo's serving), phase 5's batches and
-images, the zoo runs' steps/s, and the phase seconds. The line
+serving, each zoo run and the zoo's serving, latent eval, image eval,
+export, analysis and the single-image predictor), phase 5's batches and
+images, the zoo runs' steps/s, phase 9's rates and seconds, and the phase
+seconds. The line
 before the last is a JSON object listing the four kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
 ``flash_attention``) with their launches summed over the main paths, times,
@@ -922,11 +950,14 @@ def main() -> int:
                         dev_info, root, prod["training"]["best_model"],
                         image["best_model"])
         zoo = timed("8 model zoo", phase_zoo, torch, dev_info, root)
+        evals = timed("9 eval and analysis", phase_eval, torch, dev_info,
+                      root, prod["training"]["best_model"],
+                      image["best_model"], zoo["checkpoints"])
     paths.update({"production": prod["production"]["launches"],
                   "latent training": prod["training"]["launches"],
                   "image training": image["launches"],
                   "checkpoint serving": serving["launches"],
-                  **zoo["launches"]})
+                  **zoo["launches"], **evals["launches"]})
     launches = {name: sum(p[name] for p in paths.values())
                 for name in KERNEL_META}
     print(json.dumps({"launches_by_path": paths,
@@ -935,6 +966,8 @@ def main() -> int:
                       "zoo_steps_per_s": {
                           k: round(r["steps_per_s"], 2)
                           for k, r in zoo["rates"].items()},
+                      "eval": {k: v for k, v in evals.items()
+                               if k != "launches"},
                       "phase_seconds": seconds}))
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
@@ -2599,7 +2632,7 @@ def phase_zoo(torch, dev_info, root: Path) -> dict:
            "cpu": EncoderWrapper(psp_sd, dtype=torch.float32, device="cpu")}
     n, n_val = 7 * PROD_TRAIN_PER_CLASS, 7 * PROD_VAL_PER_CLASS
     exp_root = root / "zoo_experiments"
-    out = {"launches": {}, "rates": {}, "serving": {}}
+    out = {"launches": {}, "rates": {}, "serving": {}, "checkpoints": {}}
     serve_launches = dict.fromkeys(KERNEL_META, 0)
 
     for i, (name, module, extra, want_dir) in enumerate(ZOO_RUNS):
@@ -2620,6 +2653,7 @@ def phase_zoo(torch, dev_info, root: Path) -> dict:
         out["launches"][f"zoo {name}"] = launches
         out["rates"][name] = rate
         ckpt = run / "checkpoints" / "last_model.pt"
+        out["checkpoints"][name] = ckpt
         config = json.loads((run / "config.json").read_text())["model"]
 
         if name == "hybrid adapter":
@@ -2859,6 +2893,582 @@ def zoo_lockstep_check(torch, train_dir: Path) -> None:
           and bool((g_f32 <= g_lim).all())
           and d_b16.max() <= DET_BF16_LOSS_RTOL and s_ratio <= 1.0,
           f"{what}: training steps on the card disagree with the CPU")
+
+
+# -- phase 9: eval and analysis ------------------------------------------------
+
+# The latent evaluator's CLI (batch 32, 5 attention figures) over phase 5's
+# 112 val w+ on three checkpoints: phase 5's LatentViT, phase 8's
+# LatentViTv2 and its LatentCNN "standard"; the image evaluator's on phase
+# 6's ViT-Small/16 over the 112 val faces at 224 px (batch 32: 4 batches of
+# 12 flash_attention_sm90 launches).
+EVAL_BATCH = 32
+EVAL_VIS = 5
+EVAL_RESULT_KEYS = {"accuracy", "classification_report", "model_config",
+                    "checkpoint_path", "test_dataset_size"}
+EVAL_PLOTS = ("confusion_matrix_normalized.png", "confusion_matrix_counts.png",
+              "confusion_matrix.png", "class_metrics.png",
+              "prediction_confidence.png")
+# Rates (w+/s, images/s) are the median of SPEED_PASSES timed passes over
+# the same inputs after one untimed pass, logged with their spread.
+SPEED_PASSES = 7
+# The SVM at FER2013's train split: 28,709 seeded w+ codes flattened to
+# (N, 18 x 512) f32 on the card (1.06 GB), a common part as in real w+, a
+# class mean of 0.02 per element and unit noise; 7 one-vs-rest problems,
+# 500 steps, binary and multiclass (seconds, unit norms, accuracy).
+SVM_N = 28709
+SVM_STEPS = 500
+SVM_CLASS_SCALE = 0.02
+# SeFa: a seeded (512, 512) mapping fc0 weight; the top 10 directions x the
+# 4 non-zero DEFAULT_STEPS x 50 val w+ (2,000 codes in one forward) through
+# the seeded LatentViT; augmentation of the 448 train w+ along the top 5.
+SEFA_K = 10
+SEFA_SAMPLES = 50
+AUG_K = 5
+# The card's SVM against the CPU's, in lockstep: with the JAX package's
+# settings (lr 0.1, 500 steps) Adam overshoots on 9,216 dimensions with a
+# common part (the loss goes 717 -> 1.7e7 -> 6.4e3 over 500 steps on
+# 1,024 of these rows) and does not converge, so after 500 steps two runs
+# part by what their summation order does. Before that, over the first
+# SVM_LOCK_STEPS steps on all 28,709 rows, the card in f32 follows the CPU
+# in f32 to rounding: W and b per class (norm of the difference over the
+# norm) and the loss before each step, relative, within SVM_LOCK_TOL. Unit
+# sample weights, because balanced ones make the intercept's first
+# gradient a sum that cancels to rounding noise. The same run with TF32
+# products, or with the cosine schedule read one step late, must part by
+# more than the limit: that shows the check can fail.
+SVM_LOCK_STEPS = 3
+SVM_LOCK_TOL = 1e-5
+# SeFa's eigenvalues relative and eigenvectors by |cos| (sign is free).
+# The verification's label-change rates through the seeded LatentViT in
+# f32 on the card against the CPU: equal up to one code of the 50 per
+# direction (a near-tie), and some rate above 0.
+SEFA_RATE_TOL = 1 / SEFA_SAMPLES
+SEFA_EIG_RTOL = 1e-4
+SEFA_VEC_COS = 1 - 1e-4
+# The evaluator's classifier on the card in bf16 against the CPU in f32, on
+# the 112 val w+ through a seeded LatentViT at the trained widths (the
+# trained checkpoints answer alike for every input): probabilities within
+# 2e-2 (read 6.27e-3 on an H100 80GB HBM3 at 700 W; LatentViTv2 read
+# 9.5e-3 in phase 8), labels equal where the CPU's top two are more than 0.1
+# apart; f32 as ZOO_F32_PROB_TOL (read 5.4e-7). The seeded outputs move by
+# 0.0699 across the 112, more than twice the bf16 limit.
+EVAL_BF16_PROB_TOL = 2e-2
+# The single-image predictor (vit_fer's ViT-B/16) on phase 7's 14 val faces
+# (every SERVE_CPU_STRIDE-th): the trained checkpoint for its launches and
+# rate, a seeded and calibrated one at its widths for the card against the
+# CPU (the trained one answers alike for every face).
+CARD = "cuda"
+
+
+def sefa_weight(n: int = 512, seed: int = 91) -> np.ndarray:
+    """A seeded (n, n) weight with distinct singular values 2 * 0.99^i
+    (random orthogonal factors), so that AᵀA's leading eigenvalues are
+    apart by about 2 % and its eigenvectors are well defined."""
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    v, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    return ((u * (2 * 0.99 ** np.arange(n))) @ v.T).astype(np.float32)
+
+
+def eval_main(torch, module, argv) -> tuple:
+    """An evaluator CLI's main on ``argv`` with every kernel count set to 0
+    just before; (report, launches, wall seconds)."""
+    args = module.build_parser().parse_args([str(a) for a in argv])
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    report = module.main(args)
+    torch.cuda.synchronize()
+    return report, kernel_counts(), time.perf_counter() - t0
+
+
+def check_eval_outputs(out: Path, n: int, what: str, plots: bool) -> dict:
+    """Both JSON files with the JAX schema; the figures where matplotlib and
+    seaborn import."""
+    from fer_vit_tpu_torch import EMOTION_NAMES
+
+    results = json.loads((out / "evaluation_results.json").read_text())
+    report = json.loads((out / "evaluation_report.json").read_text())
+    cr = results["classification_report"]
+    check(set(results) == EVAL_RESULT_KEYS
+          and results["test_dataset_size"] == n == report["num_samples"]
+          and set(cr) == {*(c.capitalize() for c in EMOTION_NAMES),
+                          "accuracy", "macro avg", "weighted avg"}
+          and sum(cr[c.capitalize()]["support"] for c in EMOTION_NAMES) == n
+          and {"checkpoint", "accuracy", "f1_macro", "f1_weighted",
+               "config"} <= set(report),
+          f"{what}: evaluation files {str(results)[:300]}")
+    if plots:
+        check(all((out / f).exists() for f in EVAL_PLOTS),
+              f"{what}: figures missing")
+    return results
+
+
+def timed_passes(torch, fn) -> list:
+    """Seconds of SPEED_PASSES calls of ``fn`` after one untimed call, each
+    between two device synchronisations."""
+    fn()
+    secs = []
+    for _ in range(SPEED_PASSES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return secs
+
+
+def pass_rate(n: int, secs: list, unit: str) -> tuple:
+    """(median of n / seconds, a text with the range over the passes)."""
+    rates = sorted(n / t for t in secs)
+    med = float(np.median(rates))
+    return med, (f"{med:.1f} {unit} (median of {len(secs)} passes over "
+                 f"{n}, {rates[0]:.1f} to {rates[-1]:.1f})")
+
+
+def have_plots() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+        import seaborn  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def svm_lockstep(torch, ed, x, labels: np.ndarray) -> dict:
+    """The 7 one-vs-rest SVMs for SVM_LOCK_STEPS steps on all of ``x`` (on
+    the card) with unit sample weights, on the card in f32 and on the CPU
+    in f32; then the card again with TF32 products and with the cosine
+    schedule read one step late, each of which must part from the CPU by
+    more than SVM_LOCK_TOL."""
+    ys, _ = ed._problems(labels)
+    ones = np.ones_like(ys)
+
+    def run(xx):
+        w, b, losses = ed._svm_train_batched(
+            xx, torch.from_numpy(ys).to(xx.device),
+            torch.from_numpy(ones).to(xx.device), steps=SVM_LOCK_STEPS,
+            return_losses=True)
+        return (w.cpu().double().numpy(), b.cpu().double().numpy(),
+                np.asarray(losses))
+
+    ref = run(x.cpu())
+
+    def parting(r) -> dict:
+        w, b, losses = r
+        return {
+            "w": max(float(np.linalg.norm(w[i] - ref[0][i])
+                           / np.linalg.norm(ref[0][i])) for i in range(7)),
+            "b": float(np.max(np.abs(b - ref[1]) / np.abs(ref[1]))),
+            "loss": float(np.max(np.abs(losses - ref[2]) / ref[2])),
+            "one_minus_cos": max(1 - float(
+                w[i] @ ref[0][i] / (np.linalg.norm(w[i])
+                                    * np.linalg.norm(ref[0][i])))
+                for i in range(7))}
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prev)
+
+    def late(lr, steps, count, f=ed.cosine_lr):
+        return f(lr, steps, count + 1)
+
+    card = parting(run(x))
+    controls = {}
+    for name, attr, fault in (("TF32 products", "full_f32_matmul", tf32),
+                              ("schedule one step late", "cosine_lr", late)):
+        orig = getattr(ed, attr)
+        setattr(ed, attr, fault)
+        try:
+            controls[name] = parting(run(x))
+        finally:
+            setattr(ed, attr, orig)
+
+    def worst(p):
+        return max(p["w"], p["b"], p["loss"])
+
+    log(f"SVM lockstep, {SVM_LOCK_STEPS} steps on {len(x)} rows, unit "
+        f"weights: CPU f32 loss before each step "
+        f"{[round(float(v), 1) for v in ref[2]]}; card f32 vs CPU f32: W "
+        f"{card['w']:.3e}, b {card['b']:.3e}, loss {card['loss']:.3e} "
+        f"relative, 1 - cosine {card['one_minus_cos']:.3e} (limit "
+        f"{SVM_LOCK_TOL}); controls that must fail it: " + "; ".join(
+            f"{k}: W {v['w']:.3e}, b {v['b']:.3e}, loss {v['loss']:.3e}"
+            for k, v in controls.items()))
+    check(worst(card) <= SVM_LOCK_TOL,
+          "SVM: the card's first steps part from the CPU's")
+    check(all(worst(v) > SVM_LOCK_TOL for v in controls.values()),
+          "SVM: a control run passed the lockstep check")
+    return {"lockstep": card,
+            "lockstep_controls": {k: worst(v) for k, v in controls.items()}}
+
+
+def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
+               image_ckpt: Path, zoo_ckpts: dict) -> dict:
+    """The evaluators, reference-format export, LEAM weights, the SVM at a
+    real size, SeFa, augmentation, the single-image predictor and dataset
+    analysis, on phases 5, 6 and 8's artefacts."""
+    from fer_vit_tpu_torch import EMOTION_NAMES
+    from fer_vit_tpu_torch.analysis import expression_directions as ed
+    from fer_vit_tpu_torch.analysis import sefa
+    from fer_vit_tpu_torch.data import analyze, augment_latents
+    from fer_vit_tpu_torch.data.latent_store import LatentStore
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.eval import evaluate_image_vit, evaluate_model
+    from fer_vit_tpu_torch.eval.visualize_leam_weights import (
+        extract_leam_weights)
+    from fer_vit_tpu_torch.interop.export_torch_checkpoint import (
+        export_checkpoint)
+    from fer_vit_tpu_torch.interop.from_jax import psp_state_dict_from_jax
+    from fer_vit_tpu_torch.models import LatentDecomposer
+    from fer_vit_tpu_torch.serve import Predictor
+
+    plots = have_plots()
+    if not plots:
+        log("eval: matplotlib or seaborn does not import here; the "
+            "evaluators write no figures (as in JAX)")
+    val_dir, train_dir = root / "latents_val", root / "latents_train"
+    val = LatentStore.load(str(val_dir))
+    n_val = 7 * PROD_VAL_PER_CLASS
+    check(len(val) == n_val, f"{len(val)} val w+")
+    zero = dict.fromkeys(KERNEL_META, 0)
+    paths = {}
+    out = {}
+
+    # the latent evaluator on three checkpoints
+    latent_runs = (("LatentViT", latent_ckpt, True),
+                   ("LatentViTv2", zoo_ckpts["latent_vit_v2"], True),
+                   ("LatentCNN standard", zoo_ckpts["latent_cnn standard"],
+                    False))
+    counts_sum = dict(zero)
+    for name, ckpt, attention in latent_runs:
+        o = root / f"eval_{name.replace(' ', '_')}"
+        report, counts, wall = eval_main(torch, evaluate_model, [
+            "--checkpoint_path", ckpt, "--latent_test_dir", val_dir,
+            "--output_dir", o, "--batch_size", EVAL_BATCH,
+            "--visualize_samples", EVAL_VIS])
+        check(counts == zero, f"latent eval {name}: launches {counts}")
+        counts_sum = {k: counts_sum[k] + counts[k] for k in counts_sum}
+        results = check_eval_outputs(o, n_val, f"latent eval {name}", plots)
+        if plots:
+            check(all((o / f"attention_sample_{i}.png").exists()
+                      for i in range(EVAL_VIS)) == attention,
+                  f"latent eval {name}: attention figures")
+        model, _ = evaluate_model.load_model(str(ckpt))
+        _, _, cm = evaluate_model.evaluate(model, val, EVAL_BATCH, CARD)
+        check(cm.shape == (7, 7) and int(cm.sum()) == n_val
+              and cm.sum(axis=1).tolist() == [PROD_VAL_PER_CLASS] * 7
+              and abs(np.trace(cm) / n_val - results["accuracy"]) < 1e-9,
+              f"latent eval {name}: confusion matrix {cm.tolist()}")
+        log(f"latent eval {name}: the CLI in {wall:.2f} s for {n_val} w+ "
+            f"(batch {EVAL_BATCH}, checkpoint load and figures included), "
+            f"accuracy {results['accuracy']:.4f}, launches {counts}")
+        del model
+    paths["latent eval"] = counts_sum
+
+    # the evaluator's forward on the card in bf16 and f32 against the CPU
+    # in f32, on a seeded LatentViT checkpoint at the trained widths
+    seeded = seeded_checkpoint(torch, "latent", latent_ckpt,
+                               root / "seeded_eval.pt")
+    res = zoo_card_vs_cpu(
+        torch, "latent eval, seeded LatentViT",
+        lambda dtype, device: evaluate_model.load_model(
+            str(seeded), dtype=dtype)[0], val.latents, EVAL_BF16_PROB_TOL)
+    check_seeded_spread("latent eval, seeded LatentViT", res)
+    model, _ = evaluate_model.load_model(str(latent_ckpt))
+    model.to(CARD).eval()
+    xs = torch.from_numpy(val.latents).to(CARD)
+    rate, text = pass_rate(n_val, timed_passes(
+        torch, lambda: evaluate_model.evaluate(model, val, EVAL_BATCH, CARD)),
+        "w+/s")
+    log(f"latent eval throughput on {dev_info['card']}: {text} through "
+        f"evaluate (LatentViT 6 x 512, batch {EVAL_BATCH}, bf16, host "
+        f"copies included)")
+    out["latent_eval_per_s"] = rate
+
+    # the image evaluator: 12 K2 launches per batch
+    o = root / "eval_image"
+    report, counts, wall = eval_main(torch, evaluate_image_vit, [
+        "--checkpoint_path", image_ckpt, "--test_dir", root / "val",
+        "--output_dir", o, "--batch_size", EVAL_BATCH])
+    n_batches = -(-n_val // EVAL_BATCH)
+    want = dict(zero, flash_attention_sm90=12 * n_batches)
+    check(counts == want, f"image eval: launches {counts}, expected {want}")
+    results = check_eval_outputs(o, n_val, "image eval", plots)
+    paths["image eval"] = counts
+    from fer_vit_tpu_torch.data.image_pipeline import (ImageStore,
+                                                       normalize_images)
+
+    img_model, _, img_size = evaluate_image_vit.load_model(str(image_ckpt))
+    faces = ImageStore.load(str(root / "val"), img_size)
+    rate, text = pass_rate(n_val, timed_passes(
+        torch, lambda: evaluate_model.predict_arrays(
+            img_model, faces.images, faces.labels, EVAL_BATCH,
+            torch.device(CARD), transform=normalize_images)), "images/s")
+    log(f"image eval: the CLI in {wall:.2f} s for {n_val} faces at "
+        f"{img_size} px ({n_batches} batches of {EVAL_BATCH}, decode and "
+        f"figures included), accuracy {results['accuracy']:.4f}, launches "
+        f"{counts}; throughput on {dev_info['card']}: {text} through the "
+        f"evaluator's loop (ViT-Small/16, bf16, host copies included)")
+    out["image_eval_per_s"] = rate
+    del img_model
+
+    # reference format: export, reload through both routes, logits bit for
+    # bit on the card
+    reset_kernel_counts()
+    psp = EncoderWrapper(psp_state_dict_from_jax(psp_jax_variables()))
+    for name, ckpt in (("LatentViT", latent_ckpt),
+                       ("LatentCNN standard",
+                        zoo_ckpts["latent_cnn standard"])):
+        ref = root / f"reference_{name.replace(' ', '_')}.pt"
+        payload = export_checkpoint(str(ckpt), str(ref))
+        check(set(payload) == {"epoch", "model_state_dict", "metrics",
+                               "config", "run_id"},
+              f"export {name}: payload {sorted(payload)}")
+        with torch.inference_mode():
+            orig = evaluate_model.load_model(str(ckpt))[0].to(CARD).eval()(xs)
+            back = evaluate_model.load_model(str(ref))[0].to(CARD).eval()(xs)
+            served = Predictor.from_checkpoint(str(ref), psp=psp).model(xs)
+        check(torch.equal(orig, back) and torch.equal(orig, served),
+              f"export {name}: logits after the round trip differ (max "
+              f"{float((orig - back).abs().max()):.3e})")
+        log(f"export {name}: {len(payload['model_state_dict'])} entries to "
+            f"{ref.stat().st_size / 2**20:.1f} MiB; logits on the card "
+            f"bit-identical through load_model and Predictor.from_checkpoint")
+    torch.cuda.synchronize()
+    paths["export"] = kernel_counts()
+    check(paths["export"] == zero, f"export: launches {paths['export']}")
+    del psp
+
+    # LEAM
+    v2 = zoo_ckpts["latent_vit_v2"]
+    weights = extract_leam_weights(str(v2))
+    raw = torch.load(v2, map_location="cpu", weights_only=True)["state"][
+        "model"]["leam.layer_weights"].numpy()
+    check(weights.shape == (18,) and bool(((weights > 0) & (weights < 1)
+                                           ).all())
+          and np.array_equal(weights, 1.0 / (1.0 + np.exp(-raw))),
+          f"LEAM weights {weights}")
+    log(f"LEAM weights of phase 8's LatentViTv2: "
+        f"{np.round(weights, 4).tolist()}")
+
+    reset_kernel_counts()
+    # the SVM at FER2013's train size
+    g = torch.Generator(device=CARD).manual_seed(90)
+    d = 18 * 512
+    labels = torch.randint(0, 7, (SVM_N,), generator=g, device=CARD)
+    x = torch.randn(SVM_N, d, generator=g, device=CARD)
+    x += torch.randn(d, generator=g, device=CARD)  # the common part
+    x += SVM_CLASS_SCALE * torch.randn(7, d, generator=g,
+                                       device=CARD)[labels]
+    labels_np = labels.cpu().numpy()
+    svm = {}
+    for method, fn in (("binary", ed.compute_binary_directions),
+                       ("multiclass", ed.compute_multiclass_directions)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dirs = fn(x, labels_np, steps=SVM_STEPS)
+        dt = time.perf_counter() - t0
+        norms = [float(np.linalg.norm(dirs[i])) for i in range(7)]
+        acc = ed.directions_accuracy(x, labels_np, dirs)
+        check(all(abs(v - 1) < 1e-5 for v in norms)
+              and all(np.isfinite(dirs[i]).all() for i in range(7)),
+              f"SVM {method}: norms {norms}")
+        svm[method] = {"seconds": dt, "accuracy": acc}
+        log(f"SVM {method} directions on {dev_info['card']}: N {SVM_N} x D "
+            f"{d} f32 ({x.numel() * 4 / 1e9:.2f} GB on the card), 7 "
+            f"problems, {SVM_STEPS} steps in {dt:.3f} s; unit norms within "
+            f"{max(abs(v - 1) for v in norms):.1e}; train argmax accuracy "
+            f"{acc:.4f}")
+    svm.update(svm_lockstep(torch, ed, x, labels_np))
+    del x, labels
+    torch.cuda.empty_cache()
+    out["svm"] = svm
+
+    # the directions CLI on phase 5's train packs; the decomposer reads them
+    dirs_out = root / "directions"
+    ed.main(ed.build_parser().parse_args(
+        ["--latent_dir", str(train_dir), "--output_dir", str(dirs_out),
+         "--also_pt"]))
+    for f in ("binary_directions.npz", "multiclass_directions.npz",
+              "binary_directions.pt"):
+        dec = LatentDecomposer.from_file(str(dirs_out / f))
+        check(tuple(dec.directions.shape) == (7, 18, 512), f"{f}: "
+              f"{tuple(dec.directions.shape)}")
+
+    # SeFa: eigh on the card against the CPU, then the verification forward
+    w_fc0 = sefa_weight()
+    fac = {dev: sefa.factorize_weights(w_fc0, num_semantics=SEFA_K,
+                                       device=dev) for dev in (CARD, "cpu")}
+    ev = fac["cpu"]["eigenvalues"]
+    gap = float(np.min(-np.diff(ev)) / ev[0])
+    ev_rel = float(np.max(np.abs(fac[CARD]["eigenvalues"] / ev - 1)))
+    vec_cos = float(np.min(np.abs((fac[CARD]["directions"]
+                                   * fac["cpu"]["directions"]).sum(axis=1))))
+    log(f"SeFa eigh (512 x 512) card vs CPU: eigenvalues {ev_rel:.3e} "
+        f"relative (limit {SEFA_EIG_RTOL}), eigenvectors |cos| >= "
+        f"{vec_cos:.8f} (limit {SEFA_VEC_COS}); the top {SEFA_K} apart by "
+        f">= {gap:.4f} of the largest")
+    check(gap > 10 * SEFA_EIG_RTOL and ev_rel <= SEFA_EIG_RTOL
+          and vec_cos >= SEFA_VEC_COS, "SeFa: card and CPU disagree")
+    # the verification through the seeded LatentViT (the trained one gives
+    # the same label for every code): timed in bf16 on the card, then card
+    # f32 against CPU f32
+    rates = {}
+    for name, dtype, dev in (("bf16", None, CARD),
+                             ("f32", torch.float32, CARD),
+                             ("cpu", torch.float32, "cpu")):
+        net = evaluate_model.load_model(str(seeded), dtype=dtype)[0]
+        net = net.to(dev).eval()
+        if dev == CARD:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sefa.verify_non_expression_directions(
+            fac[CARD]["directions"], val.latents, net,
+            max_samples=SEFA_SAMPLES, device=dev)
+        if dev == CARD:
+            torch.cuda.synchronize()
+        if name == "bf16":
+            dt = time.perf_counter() - t0
+        rates[name] = np.asarray([r["label_change_rate"] for r in res])
+        del net
+    d_rate = float(np.abs(rates["f32"] - rates["cpu"]).max())
+    log(f"SeFa verification: {SEFA_K} directions x 4 steps x "
+        f"{SEFA_SAMPLES} w+ ({SEFA_K * 4 * SEFA_SAMPLES} codes in one "
+        f"forward of the seeded LatentViT) in {dt:.3f} s (bf16, first "
+        f"call); label change rates bf16 {rates['bf16'].tolist()}, card "
+        f"f32 {rates['f32'].tolist()}, CPU f32 {rates['cpu'].tolist()}; "
+        f"card f32 vs CPU f32 {d_rate:.3f} (limit {SEFA_RATE_TOL})")
+    check(len(rates["cpu"]) == SEFA_K and d_rate <= SEFA_RATE_TOL
+          and float(rates["cpu"].max()) > 0,
+          "SeFa verification: the card's rates disagree with the CPU's, or "
+          "no direction changes a label")
+
+    # augmentation along the top SeFa directions
+    aug_dir = root / "latents_augmented"
+    train = LatentStore.load(str(train_dir))
+    n_train = len(train)
+    idx = list(range(AUG_K))
+    t0 = time.perf_counter()
+    total = augment_latents.augment_latents_with_directions(
+        str(train_dir), str(aug_dir), fac[CARD]["directions"], idx)
+    dt = time.perf_counter() - t0
+    steps = len(augment_latents.DEFAULT_STEPS)
+    with np.load(aug_dir / augment_latents.PACK_NAME) as z:
+        lat, lab = z["latents"], z["labels"]
+    cpu = augment_latents.augment_latents_array(
+        train.latents, fac[CARD]["directions"][idx], device="cpu")
+    ulp = np.abs(lat[n_train:].reshape(cpu.shape) - cpu) / np.spacing(
+        np.abs(cpu))
+    check(total == n_train * (1 + AUG_K * steps) == len(lab)
+          and np.array_equal(lab[:n_train], train.labels)
+          and np.array_equal(lab[n_train:],
+                             np.repeat(train.labels, AUG_K * steps))
+          and np.array_equal(lat[:n_train], train.latents)
+          and float(ulp.max()) <= 1.0,
+          f"augmentation: {total} samples, max {float(ulp.max())} ulp")
+    again = augment_latents.augment_latents_with_directions(
+        str(train_dir), str(aug_dir), fac[CARD]["directions"], idx)
+    check(again == total, "augmentation: the second call did not skip")
+    log(f"augmentation: {n_train} + {n_train * AUG_K * steps} = {total} w+ "
+        f"in {dt:.2f} s (pack write included); card within "
+        f"{float(ulp.max()):.0f} ulp of the CPU; a second call skips")
+    torch.cuda.synchronize()
+    paths["analysis"] = kernel_counts()
+    check(paths["analysis"] == zero,
+          f"analysis: launches {paths['analysis']}")
+    del model, xs
+
+    # the single-image predictor on vit_fer's ViT-B/16
+    from PIL import Image
+
+    from fer_vit_tpu_torch.models import create_timm_vit
+    from fer_vit_tpu_torch.serve import _collect_inputs
+
+    files = _collect_inputs([str(root / "val")])[::SERVE_CPU_STRIDE]
+    vit_fer_ckpt = root / "vit_fer" / "last_model.pt"
+    reset_kernel_counts()
+    predict = analyze.create_fer2013_inference_function(str(vit_fer_ckpt))
+    answers = [predict(f) for f in files]
+    torch.cuda.synchronize()
+    paths["single-image predictor"] = kernel_counts()
+    # TimmViT's attention is the plain version, as the JAX TimmViT's
+    # (fer_vit_tpu/models/hybrid_latent_vit.py:73): no kernel
+    check(paths["single-image predictor"] == zero
+          and all(abs(sum(a["probabilities"].values()) - 1) < 1e-5
+                  for a in answers),
+          f"single-image predictor: launches "
+          f"{paths['single-image predictor']}, answers {answers[:2]}")
+    rate, text = pass_rate(len(files), timed_passes(
+        torch, lambda: [predict(f) for f in files]), "images/s")
+    log(f"single-image predictor (vit_fer ViT-B/16, 224 px) on "
+        f"{dev_info['card']}: {text}, one image a call (PIL decode and "
+        f"resize included); launches {paths['single-image predictor']}; "
+        f"the trained checkpoint's answers "
+        f"{[a['emotion'] for a in answers]}")
+    out["single_image_per_s"] = rate
+    del predict
+    # card against CPU on a seeded ViT-B/16, calibrated on these faces as
+    # the predictor prepares them
+    payload = torch.load(vit_fer_ckpt, map_location="cpu", weights_only=True)
+    base, _ = create_timm_vit("base", dtype=torch.float32)
+    base.load_state_dict(seeded_state_dict(torch, payload["state"]["model"],
+                                           49))
+    x = np.stack([np.asarray(Image.open(f).convert("RGB").resize(
+        (IMAGE_SIZE, IMAGE_SIZE)), np.float32) for f in files])
+    payload["state"]["model"] = calibrated(torch, base, (x / 255 - 0.5) / 0.5)
+    seeded_vit = root / "vit_fer_seeded.pt"
+    torch.save(payload, seeded_vit)
+    del base, payload
+    probs = {}
+    for name, dtype, device in (("bf16", None, None),
+                                ("f32", torch.float32, None),
+                                ("cpu", torch.float32, "cpu")):
+        p = analyze.create_fer2013_inference_function(
+            str(seeded_vit), dtype=dtype, device=device)
+        probs[name] = np.asarray([list(p(f)["probabilities"].values())
+                                  for f in files])
+        del p
+    ref = probs["cpu"]
+    top2 = np.sort(ref, axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > ZOO_BF16_MARGIN
+    agree = probs["bf16"].argmax(1) == ref.argmax(1)
+    res = {"dprob_bf16": float(np.abs(probs["bf16"] - ref).max()),
+           "dprob_f32": float(np.abs(probs["f32"] - ref).max()),
+           "spread": float(np.ptp(ref, axis=0).max()),
+           "clear": int(clear.sum()),
+           "bf16_tol": ZOO_BF16_PROB_TOL["transformer"]}
+    log(f"single-image predictor, seeded ViT-B/16: card bf16 vs CPU f32 on "
+        f"{len(files)} faces max |dprob| {res['dprob_bf16']:.3e} (tol "
+        f"{res['bf16_tol']}), labels agree on {int(agree[clear].sum())} of "
+        f"{res['clear']} clear; card f32 {res['dprob_f32']:.3e} (tol "
+        f"{ZOO_F32_PROB_TOL}); CPU spread {res['spread']:.4f}, labels "
+        f"{np.bincount(ref.argmax(1), minlength=7).tolist()} by class")
+    check(bool(np.isfinite(ref).all()) and res["dprob_bf16"] <= res["bf16_tol"]
+          and bool(agree[clear].all()) and res["dprob_f32"] <= ZOO_F32_PROB_TOL
+          and bool((probs["f32"].argmax(1) == ref.argmax(1)).all()),
+          "single-image predictor: the card disagrees with the CPU")
+    check_seeded_spread("single-image predictor", res)
+
+    # dataset analysis of phase 5's face directory
+    counts = analyze.analyze_fer2013_dataset(str(root), ("train", "val"))
+    check(counts == {"train": dict.fromkeys(EMOTION_NAMES,
+                                            PROD_TRAIN_PER_CLASS),
+                     "val": dict.fromkeys(EMOTION_NAMES,
+                                          PROD_VAL_PER_CLASS)},
+          f"dataset analysis {counts}")
+    if plots:
+        analyze.visualize_fer2013_samples(faces, out_path=str(
+            root / "samples.png"))
+    log(f"dataset analysis: {PROD_TRAIN_PER_CLASS}/{PROD_VAL_PER_CLASS} "
+        f"per class in train/val")
+    out["launches"] = paths
+    return out
 
 if __name__ == "__main__":
     try:

@@ -19,10 +19,13 @@ Package map:
 * :mod:`fer_vit_tpu_torch.train`    — losses, schedulers, the training
   harness and fit loop, the ``train_latent_vit`` and ``train_image_vit``
   CLIs
-* :mod:`fer_vit_tpu_torch.eval`     — the checkpoint loaders
+* :mod:`fer_vit_tpu_torch.eval`     — the evaluator CLIs and checkpoint
+  loaders, the LEAM figure, the learning-curve and data-fraction plots
+* :mod:`fer_vit_tpu_torch.analysis` — SVM expression directions and SeFa
 * :mod:`fer_vit_tpu_torch.utils`    — metrics and the experiment-dir logger
 * :mod:`fer_vit_tpu_torch.interop`  — weights from the JAX package's variables
-  and its trainers' msgpack checkpoints
+  and its trainers' msgpack checkpoints; reference-format torch
+  checkpoints in and out
 * :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent and image routes,
   from a checkpoint, over files and packs) and the predict CLI
 
@@ -30,8 +33,13 @@ Command-line entry points (CUDA; ``main(args, device="cpu")`` from Python
 for the CPU): ``python -m fer_vit_tpu_torch.data.generate_latents``,
 ``python -m fer_vit_tpu_torch.train.train_latent_vit``, ``python -m
 fer_vit_tpu_torch.train.train_image_vit``, ``python -m
-fer_vit_tpu_torch.data.image_packs`` and ``python -m
-fer_vit_tpu_torch.serve`` (the predict CLI).
+fer_vit_tpu_torch.data.image_packs``, ``python -m
+fer_vit_tpu_torch.serve`` (the predict CLI), ``python -m
+fer_vit_tpu_torch.eval.evaluate_model``, ``python -m
+fer_vit_tpu_torch.eval.evaluate_image_vit`` and ``python -m
+fer_vit_tpu_torch.analysis.expression_directions`` (``--device cpu`` for
+the CPU), and ``python -m
+fer_vit_tpu_torch.interop.export_torch_checkpoint``.
 """
 
 __version__ = "0.1.0"

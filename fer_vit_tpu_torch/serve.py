@@ -9,8 +9,9 @@ any length are cut into chunks padded to ``batch_size``, and up to
 waiting, and fetching an older chunk's results to the host is the only
 wait. The answers do not depend on the depth.
 
-:meth:`Predictor.from_checkpoint` loads a trained checkpoint (the port's own
-or a JAX trainer's msgpack file) and routes it by its config;
+:meth:`Predictor.from_checkpoint` loads a trained checkpoint (the port's own,
+a JAX trainer's msgpack file or a reference-format torch file) and routes
+it by its config;
 :meth:`Predictor.predict_files` decodes image files on a background thread
 and :meth:`Predictor.predict_packed` reads pre-decoded packs
 (:mod:`fer_vit_tpu_torch.data.image_packs`). The offline predict CLI, with
@@ -101,9 +102,10 @@ class Predictor:
                         dtype: Optional[torch.dtype] = None,
                         pipeline_depth: int = 2,
                         device: DeviceLike = None) -> "Predictor":
-        """Load a trained checkpoint (the port's own or a JAX trainer's
-        msgpack file; :func:`fer_vit_tpu_torch.eval.evaluate_model.
-        load_model`) and route it: image configs take the image route,
+        """Load a trained checkpoint (the port's own, a JAX trainer's
+        msgpack file or a reference-format torch file;
+        :func:`fer_vit_tpu_torch.eval.evaluate_model.load_model`) and route
+        it: image configs take the image route,
         latent configs the pSp route, which needs ``psp`` or
         ``psp_weights`` (a converted pSp ``.npz`` in the JAX package's
         layout, or a pSp ``.pt`` checkpoint). ``dtype`` is the compute dtype

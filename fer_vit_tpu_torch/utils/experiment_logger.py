@@ -25,6 +25,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from collections import Counter
 from datetime import datetime
 from typing import Any, Dict, Mapping, Optional
 
@@ -110,6 +111,108 @@ class ExperimentLogger:
             self._add_scalar(
                 f"Gradient_Norm/{name}", float(np.linalg.norm(arr)), epoch
             )
+
+    def log_learning_curves(self, train_loss: float,
+                            val_metrics: Dict[str, float],
+                            epoch: int) -> None:
+        """Reference API (utils/experiment_logger.py:54-62)."""
+        self._add_scalar("Loss/Train", float(train_loss), epoch)
+        for key, value in val_metrics.items():
+            if key in ("accuracy", "f1_macro", "f1_weighted"):
+                self._add_scalar(f"Validation/{key}", float(value), epoch)
+
+    def log_model_architecture(self, model: torch.nn.Module,
+                               input_shape) -> str:
+        """The reference's TensorBoard graph (``add_graph`` on a
+        ``(1, *input_shape)`` input) as text: a parameter table (the state
+        dict's dotted names without the buffers, shape, #params) with its
+        TOTAL, then the module tree (``str(model)``) and a count of module
+        types, written as TensorBoard text under ``Model/Architecture`` and
+        to ``logs/model_architecture.txt``. Returns the text."""
+        buffers = {name for name, _ in model.named_buffers()}
+        lines = [f"Model: {type(model).__name__}",
+                 f"Input shape: (1, {', '.join(str(s) for s in input_shape)})",
+                 "", "Parameters:",
+                 f"  {'name':<60} {'shape':<20} {'#params':>12}"]
+        total = 0
+        for name, t in model.state_dict().items():
+            if name in buffers:
+                continue
+            total += t.numel()
+            shape = str(tuple(t.shape))
+            lines.append(f"  {name:<60} {shape:<20} {t.numel():>12,}")
+        lines += [f"  {'TOTAL':<60} {'':<20} {total:>12,}", ""]
+        types = Counter(type(m).__name__ for m in model.modules())
+        lines.append(f"Modules: {sum(types.values())}")
+        lines.append("Module types: " + ", ".join(
+            f"{k}×{v}" for k, v in sorted(types.items(),
+                                          key=lambda kv: (-kv[1], kv[0]))))
+        lines += ["", "Module tree:", str(model)]
+        summary = "\n".join(lines)
+        with open(os.path.join(self._log_dir, "model_architecture.txt"),
+                  "w", encoding="utf-8") as f:
+            f.write(summary + "\n")
+        if self.writer is not None:
+            self.writer.add_text("Model/Architecture",
+                                 "```\n" + summary + "\n```")
+        return summary
+
+    def log_hyperparameters(self, hparams: Dict[str, Any],
+                            metrics: Dict[str, float]) -> None:
+        """Reference API (:70-72); TensorBoard hparams where the writer
+        takes them, and ``logs/hparams.json`` always."""
+        if self.writer is not None:
+            try:
+                self.writer.add_hparams(
+                    {k: v for k, v in hparams.items()
+                     if isinstance(v, (int, float, str, bool))},
+                    {k: float(v) for k, v in metrics.items()},
+                )
+            except Exception as e:  # TB's hparams plugin is optional
+                print(f"TensorBoard hparams not written: {e}")
+        with open(os.path.join(self._log_dir, "hparams.json"), "w") as f:
+            json.dump({"hparams": hparams, "metrics": metrics}, f,
+                      indent=2, default=str)
+
+    def log_attention_weights(self, attention_weights, epoch: int,
+                              sample_idx: int = 0) -> None:
+        """Reference API (:148-163): heatmap of attention weights, to
+        TensorBoard and ``logs/attention_s{sample}_e{epoch}.png``; nothing
+        without matplotlib."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return
+        fig, ax = plt.subplots(figsize=(10, 6))
+        im = ax.imshow(_host(attention_weights), cmap="viridis",
+                       aspect="auto")
+        ax.set_title(f"Attention Weights - Sample {sample_idx}")
+        ax.set_xlabel("Latent Token Index")
+        ax.set_ylabel("Attention Head")
+        fig.colorbar(im, ax=ax)
+        fig.tight_layout()
+        if self.writer is not None:
+            self.writer.add_figure(f"Attention/Sample_{sample_idx}", fig,
+                                   epoch)
+        fig.savefig(os.path.join(self._log_dir,
+                                 f"attention_s{sample_idx}_e{epoch}.png"),
+                    dpi=120)
+        plt.close(fig)
+
+    def log_images(self, latents, labels, predictions, epoch: int,
+                   max_images: int = 8) -> None:
+        """Reference API (:184-192): latent statistics histograms (the
+        inputs are latents, not images)."""
+        del labels, predictions, max_images
+        arr = _host(latents)
+        if self.writer is not None:
+            self.writer.add_histogram("Latent_Statistics/Mean",
+                                      arr.mean(axis=(1, 2)), epoch)
+            self.writer.add_histogram("Latent_Statistics/Std",
+                                      arr.std(axis=(1, 2)), epoch)
 
     def log_confusion_matrix(self, y_true, y_pred, class_names, epoch: int,
                              cm: Optional[np.ndarray] = None) -> None:
@@ -254,3 +357,23 @@ def create_experiment_name(model_config: Dict[str, Any],
     if "encoder_type" in training_config:
         encoder_info = f"_{training_config['encoder_type']}"
     return f"{model_name}_{training_name}{encoder_info}"
+
+
+def load_experiment_config(experiment_path: str) -> Dict[str, Any]:
+    config_path = os.path.join(experiment_path, "config.json")
+    with open(config_path, "r") as f:
+        return json.load(f)
+
+
+def compare_experiments(experiment_dirs,
+                        metric: str = "f1_macro") -> Dict[str, float]:
+    """Compare final metrics across runs (reference: :268-281)."""
+    results: Dict[str, float] = {}
+    for exp_dir in experiment_dirs:
+        summary_path = os.path.join(exp_dir, "experiment_summary.json")
+        if os.path.exists(summary_path):
+            with open(summary_path) as f:
+                summary = json.load(f)
+            name = summary.get("experiment_name", os.path.basename(exp_dir))
+            results[name] = summary.get("final_metrics", {}).get(metric, 0.0)
+    return results

@@ -279,30 +279,65 @@ def test_from_checkpoint_matches_jax_predictor(tmp_path, kind):
     np.testing.assert_allclose(probs, ref_probs, rtol=0, atol=PROB_TOL)
 
 
+REFERENCE_CONFIGS = {
+    "image": dict(img_size=32, patch_size=8, embed_dim=32, depth=1, heads=2,
+                  mlp_dim=64, dropout=0.0, model_size="custom"),
+    "latent": dict(latent_dim=16, seq_len=18, embed_dim=32, depth=1,
+                   heads=2, mlp_dim=64, dropout=0.0),
+}
+
+
 def _reference_format(tmp_path, what):
+    """The three containers of the upstream torch code, each holding a
+    real reference-keyed state dict of a tiny model: a zip file with
+    ``config``, one with a legacy ``args`` Namespace, and a legacy (non-zip)
+    pickle with the older ``model_state`` key."""
     path = tmp_path / f"{what}.pt"
-    sd = {"w": torch.zeros(2)}
+    kind = "image" if what == "state_dict_only" else "latent"
+    cfg = REFERENCE_CONFIGS[kind]
+    model = model_from_config(cfg, torch.float32)
+    torch.manual_seed(0)
+    sd = {k: torch.randn_like(v) if v.is_floating_point() else v
+          for k, v in model.state_dict().items()}
     if what == "state_dict_only":
-        torch.save({"epoch": 1, "model_state_dict": sd,
-                    "config": {"img_size": 32}}, path)
+        torch.save({"epoch": 1, "model_state_dict": sd, "config": cfg}, path)
     elif what == "namespace_args":
         torch.save({"model_state_dict": sd,
-                    "args": argparse.Namespace(depth=1)}, path)
+                    "args": argparse.Namespace(**cfg)}, path)
     else:  # a legacy (non-zip) pickle
-        torch.save({"model_state_dict": sd}, path,
+        torch.save({"model_state": sd, "config": {"model": cfg}}, path,
                    _use_new_zipfile_serialization=False)
-    return str(path)
+    return str(path), kind, cfg, sd
 
 
 @pytest.mark.parametrize("what", ["state_dict_only", "namespace_args",
                                   "legacy_pickle"])
 def test_reference_format_torch_checkpoints_raise(tmp_path, what):
-    path = _reference_format(tmp_path, what)
+    """Reference-format containers, refused before the reader was ported,
+    now load: through ``load_model`` (strict, bit-identical to the state
+    dict loaded by hand) and behind ``Predictor.from_checkpoint`` on the
+    route their config names."""
+    path, kind, cfg, sd = _reference_format(tmp_path, what)
     assert _is_torch_checkpoint(path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        load_model(path)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        Predictor.from_checkpoint(path, device="cpu")
+    model, config = load_model(path, dtype=torch.float32)
+    assert config.get("model", config) == cfg
+    want = model_from_config(cfg, torch.float32)
+    want.load_state_dict(sd, strict=True)
+    x = torch.from_numpy(_sample({**cfg, "latent_dim": 16}, n=2))
+    with torch.no_grad():
+        assert torch.equal(model.eval()(x), want.eval()(x))
+    kw = {}
+    if kind == "latent":
+        kw["psp"] = EncoderWrapper(seed=0, device="cpu", encoder=PSpEncoder(
+            **TINY_PSP, fuse_bn=True, fused_residual=True))
+    pred = Predictor.from_checkpoint(path, batch_size=2, dtype=torch.float32,
+                                     device="cpu", **kw)
+    assert pred.describe()["route"] == kind
+    imgs = np.random.default_rng(1).integers(0, 256, (3, 32, 32, 3),
+                                             dtype=np.uint8)
+    labels, probs = pred.predict(imgs)
+    assert probs.shape == (3, 7) and np.allclose(probs.sum(axis=1), 1,
+                                                 atol=1e-6)
 
 
 @pytest.mark.parametrize("config,kind", [

@@ -7,7 +7,8 @@ determinism, the launch counts and the wrappers' device-side checks; then
 the latent production and training slice: the fused unit at
 ``generate_latents``' batch of 256, the training harness's f32 steps on the
 card against the CPU, and ``generate_latents`` on a few images with its
-launch counts. Marked
+launch counts; the SVM directions and SeFa's eigh on the card against the
+CPU, and the image evaluator's K2 launches. Marked
 ``cuda``; they skip without a CUDA device. This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed::
@@ -491,3 +492,87 @@ def test_latent_cnn_card_matches_cpu(smoke, model_type):
                     torch.testing.assert_close(
                         got_sd[k].cpu(), ref_sd[k], rtol=0,
                         atol=1e-5 * float(ref_sd[k].abs().max()))
+
+
+# -- eval and analysis ------------------------------------------------------------
+
+# The SVM's directions, card f32 (TF32 off for the call) against CPU f32: a
+# strongly convex problem, both runs head for one optimum (the intercept's
+# first gradient is rounding noise under balanced weights, so the early
+# steps may part); eigh on AᵀA of chip_smoke.py's seeded (512, 512) weight
+# (leading eigenvalues about 2 % apart), eigenvectors up to sign.
+CARD_DIR_COS = 1 - 1e-4
+CARD_EIG_RTOL = 1e-4
+CARD_EIGVEC_COS = 1 - 1e-4
+
+
+def test_svm_on_the_card_matches_cpu(smoke):
+    import numpy as np
+
+    from fer_vit_tpu_torch.analysis import expression_directions as ed
+
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 7, 512)
+    x = (0.5 * rng.normal(size=(7, 18 * 32))[labels]
+         + rng.normal(size=(512, 18 * 32))).astype(np.float32)
+    got = ed.compute_binary_directions(x, labels, steps=500)
+    want = ed.compute_binary_directions(x, labels, steps=500, device="cpu")
+    for i in range(7):
+        assert float(got[i] @ want[i]) >= CARD_DIR_COS, i
+    assert ed.directions_accuracy(torch.from_numpy(x).cuda(), labels,
+                                  got) == ed.directions_accuracy(
+                                      x, labels, want)
+
+
+def test_eigh_on_the_card_matches_cpu(smoke):
+    import numpy as np
+
+    from fer_vit_tpu_torch.analysis import sefa
+
+    w = smoke.sefa_weight()
+    got = sefa.factorize_weights(w, num_semantics=10)
+    want = sefa.factorize_weights(w, num_semantics=10, device="cpu")
+    np.testing.assert_allclose(got["eigenvalues"], want["eigenvalues"],
+                               rtol=CARD_EIG_RTOL)
+    cos = np.abs((got["directions"] * want["directions"]).sum(axis=1))
+    assert cos.min() >= CARD_EIGVEC_COS, cos
+
+
+def test_evaluate_image_vit_launches_k2(smoke, tmp_path):
+    """The image evaluator CLI on the card: an ImageViT at 224 px (depth 2,
+    384 wide) over 21 images at batch 8 launches the TMA attention kernel
+    twice per batch (3 batches) and nothing else, and writes both JSON
+    files."""
+    import json
+
+    import numpy as np
+    from PIL import Image
+
+    from fer_vit_tpu_torch import EMOTION_NAMES
+    from fer_vit_tpu_torch.eval import evaluate_image_vit
+    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
+    from fer_vit_tpu_torch.ops import flash_attention
+
+    config = dict(model_size="custom", img_size=224, patch_size=16,
+                  embed_dim=384, depth=2, heads=6, mlp_dim=768, dropout=0.0)
+    path = _port_checkpoint(tmp_path, model_from_config(config), config)
+    rng = np.random.default_rng(2)
+    for c in EMOTION_NAMES:
+        (tmp_path / "faces" / c).mkdir(parents=True)
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (224, 224, 3), np.uint8)
+                            ).save(tmp_path / "faces" / c / f"{i}.png")
+    args = evaluate_image_vit.build_parser().parse_args(
+        ["--checkpoint_path", path, "--test_dir", str(tmp_path / "faces"),
+         "--output_dir", str(tmp_path / "out"), "--batch_size", "8"])
+    fu.reset_launch_counts()
+    reset_launch_counts()
+    evaluate_image_vit.main(args)
+    torch.cuda.synchronize()
+    counts = {**fused_irse_residual.kernel_launches,
+              **flash_attention.fused_attention.kernel_launches}
+    assert counts == {fu.SM90: 0, fu.MMA: 0, SM90: 6, STREAMING: 0}
+    results = json.loads((tmp_path / "out" / "evaluation_results.json"
+                          ).read_text())
+    assert results["test_dataset_size"] == 21
+    assert (tmp_path / "out" / "evaluation_report.json").exists()

@@ -47,7 +47,12 @@ def test_every_module_imports_with_jax_blocked():
               "models.expression_aware_vit", "encoders.convert_timm",
               "train.train_latent_vit_v2", "train.train_latent_cnn",
               "train.train_hybrid_latent_vit",
-              "train.train_expression_aware_vit", "train.vit_fer"):
+              "train.train_expression_aware_vit", "train.vit_fer",
+              "interop.torch_state", "interop.export_torch_checkpoint",
+              "eval.visualize_leam_weights", "eval.plot_logs",
+              "eval.plot_data_fraction", "analysis",
+              "analysis.expression_directions", "analysis.sefa",
+              "data.augment_latents", "data.analyze"):
         assert f"fer_vit_tpu_torch.{m}" in mods
     code = (
         "import sys\n"

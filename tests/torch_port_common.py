@@ -2,6 +2,7 @@
 tiny configurations and seeded weights in the JAX package's layout."""
 
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -105,3 +106,76 @@ def assert_params_close(jstate, state, tol, steps=3, lr=1e-4,
             assert float(d[key_bias].max()) <= steps * lr * (1 + 1e-3), k
             d[key_bias] = 0
         assert float(d.max()) <= tol, (k, float(d.max()))
+
+
+def jax_model_and_variables(model_config, seed):
+    """The JAX classifier a checkpoint's model config describes, with
+    seeded numpy variables (``params``, and ``batch_stats`` for the
+    BatchNorm models)."""
+    from fer_vit_tpu.eval import evaluate_model as jax_eval
+
+    model = jax_eval.model_from_config(model_config)
+    if jax_eval.is_image_config(model_config):
+        s = model_config["img_size"]
+        sample = jnp.zeros((1, s, s, 3))
+    else:
+        sample = jnp.zeros((1, model_config.get("seq_len", 18),
+                            model_config["latent_dim"]))
+    shapes = jax.eval_shape(model.init, jax.random.key(0), sample)
+    return model, random_variables(shapes, seed)
+
+
+def write_jax_checkpoint(base_dir, model_config, variables, name="run"):
+    """best_model.pt as the JAX trainers write it: the TrainState (params,
+    batch_stats, AdamW state), the config, epoch 3."""
+    import os
+
+    from fer_vit_tpu.train.harness import TrainConfig, TrainState
+    from fer_vit_tpu.train.harness import make_optimizer
+    from fer_vit_tpu.utils.experiment_logger import ExperimentLogger
+
+    params = variables["params"]
+    state = TrainState(params=params,
+                       batch_stats=variables.get("batch_stats", {}),
+                       opt_state=make_optimizer(TrainConfig()).init(params))
+    logger = ExperimentLogger(name, base_dir=str(base_dir))
+    logger.log_config({"model": model_config, "training": {}})
+    logger.save_checkpoint(state, 3, {"f1_macro": 0.25}, is_best=True)
+    logger.close()
+    return os.path.join(logger.run_dir, "checkpoints", "best_model.pt")
+
+
+def write_port_checkpoint(base_dir, model_config, variables, name="port"):
+    """best_model.pt as the port's trainers write it, with the same
+    weights."""
+    import os
+
+    import torch
+
+    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
+    from fer_vit_tpu_torch.interop.from_jax import state_dict_from_jax
+    from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
+    from fer_vit_tpu_torch.utils.experiment_logger import ExperimentLogger
+
+    model = model_from_config(model_config, torch.float32)
+    model.load_state_dict(state_dict_from_jax(model_config, variables),
+                          strict=True)
+    logger = ExperimentLogger(name, base_dir=str(base_dir))
+    logger.log_config({"model": model_config, "training": {}})
+    logger.save_checkpoint(Harness(model=model, cfg=TrainConfig(),
+                                   device="cpu").init_state(),
+                           3, {"f1_macro": 0.25}, is_best=True)
+    logger.close()
+    return os.path.join(logger.run_dir, "checkpoints", "best_model.pt")
+
+
+@pytest.fixture
+def tiny_trunk(monkeypatch):
+    """The timm "tiny" preset cut to one 32-wide block in both packages, so
+    that hybrid and timm models build at a tiny size."""
+    from fer_vit_tpu.models import hybrid_latent_vit as jax_hl
+    from fer_vit_tpu_torch.models import hybrid_latent_vit as hl
+
+    tiny = dict(embed_dim=32, depth=1, num_heads=2, mlp_dim=64)
+    for table in (jax_hl.TIMM_VIT_CONFIGS, hl.TIMM_VIT_CONFIGS):
+        monkeypatch.setitem(table, "tiny", tiny)
