@@ -110,6 +110,22 @@ Phases, in order; any failure exits non-zero before the result line:
    CPU on a seeded, calibrated ViT-B/16; the face tree's class counts.
    Figures are written where matplotlib and seaborn import.
 
+10. AFS, on phase 5's packs and faces: the 1024 px StyleGAN2 generator of
+   pSp's FFHQ decoder (channel multiplier 2), seeded, written as a
+   pSp-format ``.pt`` and turned into the JAX layout's ``.npz`` by the
+   port's ``convert_stylegan2`` CLI (bit for bit); its forward at batch 8
+   in bf16 (ms, images/s, peak memory) and the card in f32 and bf16
+   against the CPU in f32 on 2 w+; IR-SE50 ArcFace and LPIPS-alex at batch
+   8, card against CPU (no kernel launched); ``train_style_extractor``
+   with provider A on the 112 val w+ (14 steps an epoch, validated on 48
+   train w+) for 2 epochs, resumed for a third, and provider B for 1 epoch
+   on the face directory (the experiment directory's files and keys,
+   finite histories, no kernel launched, steps/s); one step split by part
+   (h, generator, ArcFace, LPIPS, backward) and provider B's PIL share;
+   3 steps at 256 px, batch 4, in lockstep: the card in f32 against the
+   CPU in f32 (loss and its parts, gradients, running statistics,
+   parameters) and the generator in bf16 (the loss).
+
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
 three requests with every kernel's launch count set to 0 just before and
@@ -124,9 +140,9 @@ Each phase's wall seconds are logged as it ends. Before the kernels line,
 a JSON line gives the launches per kernel on each main path (the two
 serving slices, production, latent training, image training, checkpoint
 serving, each zoo run and the zoo's serving, latent eval, image eval,
-export, analysis and the single-image predictor), phase 5's batches and
-images, the zoo runs' steps/s, phase 9's rates and seconds, and the phase
-seconds. The line
+export, analysis, the single-image predictor and the AFS paths), phase
+5's batches and images, the zoo runs' steps/s, phase 9's rates and
+seconds, phase 10's readings, and the phase seconds. The line
 before the last is a JSON object listing the four kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
 ``flash_attention``) with their launches summed over the main paths, times,
@@ -953,11 +969,13 @@ def main() -> int:
         evals = timed("9 eval and analysis", phase_eval, torch, dev_info,
                       root, prod["training"]["best_model"],
                       image["best_model"], zoo["checkpoints"])
+        afs = timed("10 AFS", phase_afs, torch, dev_info, root)
     paths.update({"production": prod["production"]["launches"],
                   "latent training": prod["training"]["launches"],
                   "image training": image["launches"],
                   "checkpoint serving": serving["launches"],
-                  **zoo["launches"], **evals["launches"]})
+                  **zoo["launches"], **evals["launches"],
+                  **afs["launches"]})
     launches = {name: sum(p[name] for p in paths.values())
                 for name in KERNEL_META}
     print(json.dumps({"launches_by_path": paths,
@@ -968,6 +986,8 @@ def main() -> int:
                           for k, r in zoo["rates"].items()},
                       "eval": {k: v for k, v in evals.items()
                                if k != "launches"},
+                      "afs": {k: v for k, v in afs.items()
+                              if k != "launches"},
                       "phase_seconds": seconds}))
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
@@ -1038,14 +1058,10 @@ F32_PROB_TOL = 1e-4
 F32_W_RTOL = 1e-4
 
 
-@functools.lru_cache(maxsize=None)
-def psp_jax_variables(plan=IR_SE_50_PLAN, input_size=256, style_dim=512,
-                      n_styles=18, coarse_ind=3, middle_ind=7, seed=0):
-    """Seeded pSp weights as a numpy tree in the JAX package's ``PSpEncoder``
-    layout (unfused): conv kernels N(0, 1/fan_in), BN near identity. Drawn
-    once per argument set (phases 3, 5 and 7 share the full-width tree);
-    callers read it and copy what they keep."""
-    rng = np.random.default_rng(seed)
+def jax_leaf_makers(rng):
+    """Seeded leaf makers: conv and dense kernels N(0, 1/fan_in), small
+    values 0.1 N(0, 1), a BatchNorm near identity (params, stats), PReLU
+    slopes in [0.1, 0.4]."""
     f32 = np.float32
 
     def kernel(*shape):
@@ -1062,6 +1078,14 @@ def psp_jax_variables(plan=IR_SE_50_PLAN, input_size=256, style_dim=512,
     def slopes(c):
         return {"alpha": rng.uniform(0.1, 0.4, c).astype(f32)}
 
+    return kernel, small, bn, slopes
+
+
+def irse_jax_trunk(rng, plan):
+    """An IR-SE trunk's seeded (params, batch_stats) in the JAX layout
+    (``input_conv``, ``input_bn``, ``input_prelu``, ``body_{i}``), unfused:
+    the pSp backbone and ArcFace's ``net`` share it."""
+    kernel, _, bn, slopes = jax_leaf_makers(rng)
     bb, bbs = {}, {}
     bb["input_conv"] = {"kernel": kernel(3, 3, 3, 64)}
     bb["input_bn"], bbs["input_bn"] = bn(64)
@@ -1083,6 +1107,20 @@ def psp_jax_variables(plan=IR_SE_50_PLAN, input_size=256, style_dim=512,
                 b["shortcut_bn"], bs["shortcut_bn"] = bn(out_c)
             bb[f"body_{unit}"], bbs[f"body_{unit}"] = b, bs
             unit += 1
+    return bb, bbs
+
+
+@functools.lru_cache(maxsize=None)
+def psp_jax_variables(plan=IR_SE_50_PLAN, input_size=256, style_dim=512,
+                      n_styles=18, coarse_ind=3, middle_ind=7, seed=0):
+    """Seeded pSp weights as a numpy tree in the JAX package's ``PSpEncoder``
+    layout (unfused): conv kernels N(0, 1/fan_in), BN near identity. Drawn
+    once per argument set (phases 3, 5 and 7 share the full-width tree);
+    callers read it and copy what they keep."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    kernel, small, bn, slopes = jax_leaf_makers(rng)
+    bb, bbs = irse_jax_trunk(rng, plan)
     fpn = plan[-1][1]
     params = {"backbone": bb}
     params["latlayer1"] = {"kernel": kernel(1, 1, plan[2][1], fpn),
@@ -3469,6 +3507,501 @@ def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
         f"per class in train/val")
     out["launches"] = paths
     return out
+
+# -- phase 10: AFS ------------------------------------------------------------
+
+AFS_SIZE = 1024  # pSp's FFHQ decoder (channel multiplier 2, 8-layer mapping)
+AFS_BATCH = 8  # the trainer's default
+AFS_EPOCHS = 2  # then --resume for a third
+AFS_VAL_N = 48  # train w+ written as the validation pack
+AFS_GEN_CHECK = 2  # w+ of phase 5 through the generator on the CPU in f32
+AFS_LOCK_SIZE = 256
+AFS_LOCK_BATCH = 4
+AFS_LOCK_STEPS = 3
+AFS_LR = 1e-4
+# Card against CPU, f32 with TF32 off: the same arithmetic in other orders.
+# Limits relative to the largest magnitude of the CPU's output: the
+# 1024 px images (17 modulated convs, demodulated in f32; read 3.4e-6 on
+# an H100), the IR-SE50 embeddings and the LPIPS distance (read 3.1e-6
+# and 9.1e-8).
+AFS_GEN_F32_RTOL = 1e-4
+AFS_NET_F32_RTOL = 1e-4
+# The generator in bf16 on the card against f32 on the CPU: 8 bits of
+# mantissa through 17 layers (read 2.0e-2).
+AFS_GEN_BF16_RTOL = 5e-2
+# Lockstep (each step of the card from the CPU's state): the loss and its
+# parts, relative (read 1.1e-5: L_id = mean(1 - cos) magnifies the
+# embeddings' 3e-6); the clipped gradients, relative L2 over all of h's
+# parameters (read 5.3e-4); the running statistics after the step,
+# relative to each tensor's largest magnitude (read 6.4e-6); the
+# parameters after the step within 3 lr (Adam's first steps are
+# sign-like: an element whose gradient is rounding noise, such as each
+# highway's pre-BatchNorm bias, moves by about lr either way, so two
+# updates part by about 2 lr; m_hat / sqrt(v_hat) may pass 1 a little
+# from the second step on; read 1.96e-4).
+# bf16 (the generator) on the loss and its parts only (read 2.8e-2).
+# Readings on an NVIDIA H100 80GB HBM3 at 700 W.
+AFS_LOCK_LOSS_RTOL = 1e-4
+AFS_LOCK_GRAD_RTOL = 2e-3
+AFS_LOCK_STAT_RTOL = 5e-5
+AFS_LOCK_BF16_RTOL = 5e-2
+AFS_LOCK_PARAM_ATOL = 3 * AFS_LR
+
+
+def stylegan2_jax_variables(size=AFS_SIZE, style_dim=512, n_mlp=8,
+                            channel_multiplier=2, seed=60):
+    """Seeded StyleGAN2 weights as a numpy tree in the JAX package's
+    ``Generator`` layout, with rosinality's init: N(0, 1) conv, modulation
+    and constant weights, mapping weights N(0, 1) / 0.01, modulation biases
+    1, noise weights 0.1, biases 0.1 N(0, 1), N(0, 1) noise buffers."""
+    from fer_vit_tpu_torch.encoders.stylegan2 import channel_map
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=f32)
+
+    def modconv(cin, cout, k):
+        return {"weight": normal(k, k, cin, cout),
+                "modulation": {"kernel": normal(style_dim, cin),
+                               "bias": np.ones(cin, f32)}}
+
+    def styled(cin, cout):
+        return {"conv": modconv(cin, cout, 3), "noise_weight": f32(0.1),
+                "bias": 0.1 * normal(cout)}
+
+    def to_rgb(cin):
+        return {"conv": modconv(cin, 3, 1), "bias": 0.1 * normal(3)}
+
+    ch = channel_map(size, channel_multiplier)
+    params = {f"style_{i}": {"kernel": normal(style_dim, style_dim) / 0.01,
+                             "bias": np.zeros(style_dim, f32)}
+              for i in range(n_mlp)}
+    params["input"] = normal(1, 4, 4, ch[4])
+    params["conv1"] = styled(ch[4], ch[4])
+    params["to_rgb1"] = to_rgb(ch[4])
+    log_size = int(math.log2(size))
+    cin = ch[4]
+    for i in range(3, log_size + 1):
+        cout = ch[2 ** i]
+        params[f"convs_{2 * (i - 3)}"] = styled(cin, cout)
+        params[f"convs_{2 * (i - 3) + 1}"] = styled(cout, cout)
+        params[f"to_rgbs_{i - 3}"] = to_rgb(cout)
+        cin = cout
+    noises = {f"noise_{j}": normal(1, 2 ** ((j + 5) // 2),
+                                   2 ** ((j + 5) // 2), 1)
+              for j in range((log_size - 2) * 2 + 1)}
+    return {"params": params, "noises": noises}
+
+
+def arcface_jax_variables(plan=IR_SE_50_PLAN, embedding=512, seed=61):
+    """Seeded ArcFace weights as a numpy tree in the JAX package's
+    ``ArcFaceExtractor`` layout (``params``/``batch_stats`` under
+    ``net``)."""
+    rng = np.random.default_rng(seed)
+    kernel, small, bn, _ = jax_leaf_makers(rng)
+    net, stats = irse_jax_trunk(rng, plan)
+    width = plan[-1][1]
+    spatial = 112 // 2 ** len(plan)
+    net["output_bn2d"], stats["output_bn2d"] = bn(width)
+    net["output_linear"] = {"kernel": kernel(width * spatial * spatial,
+                                             embedding),
+                            "bias": small(embedding)}
+    net["output_bn1d"], stats["output_bn1d"] = bn(embedding)
+    return {"params": {"net": net}, "batch_stats": {"net": stats}}
+
+
+def lpips_jax_variables(seed=62):
+    """Seeded LPIPS-alex weights as a numpy tree in the JAX package's
+    ``LPIPS`` layout: conv kernels N(0, 1/fan_in) (AlexNet's widths),
+    biases 0.1 N(0, 1), lins |N(0, 0.02)|."""
+    from fer_vit_tpu_torch.encoders.lpips import ALEX_CFG, LIN_CHANNELS
+
+    rng = np.random.default_rng(seed)
+    kernel, small, _, _ = jax_leaf_makers(rng)
+    net, cin = {}, 3
+    for i, (ch, k, _, _, _) in enumerate(ALEX_CFG):
+        net[f"conv_{i}"] = {"kernel": kernel(k, k, cin, ch),
+                            "bias": small(ch)}
+        cin = ch
+    params = {"net": net}
+    for i, c in enumerate(LIN_CHANNELS):
+        params[f"lin_{i}"] = np.abs(0.02 * rng.normal(size=(1, 1, c, 1))
+                                    ).astype(np.float32)
+    return {"params": params}
+
+
+def rel(torch, got, want) -> float:
+    """max |got - want| / max |want|, in f64 on the CPU."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def afs_generator(torch, sd, size, device, dtype=None):
+    from fer_vit_tpu_torch.encoders.stylegan2 import Generator
+
+    gen = Generator(size=size, dtype=dtype)
+    gen.load_state_dict(sd, strict=True)
+    return gen.requires_grad_(False).eval().to(device)
+
+
+def afs_step_split(torch, h, gen, crit, w_src, w_tgt, img_src=None,
+                   img_tgt=None) -> dict:
+    """One training step's forward and backward (no update) split by CUDA
+    events into h (its three forwards), the generator (w_new with its
+    graph; G(w_src) and G(w_tgt) without, for provider A), ArcFace (both
+    calls), LPIPS and the backward: ms each."""
+    from fer_vit_tpu_torch.encoders.stylegan2 import face_pool
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    h.train()
+    h.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    ev[0].record()
+    w_sty_src = h(w_src)
+    w_sty_tgt = h(w_tgt)
+    w_new = (w_src - w_sty_src) + w_sty_tgt
+    w_sty_new = h(w_new)
+    ev[1].record()
+    img_gen = face_pool(gen([w_new])[0], 256).float()
+    if img_src is None:
+        with torch.no_grad():
+            img_src = face_pool(gen([w_src])[0], 256).float()
+            img_tgt = face_pool(gen([w_tgt])[0], 256).float()
+    ev[2].record()
+    with torch.no_grad():
+        f_src = crit.arcface(img_src)
+    f_gen = crit.arcface(img_gen)
+    unit = lambda v: v / torch.linalg.vector_norm(  # noqa: E731
+        v, dim=1, keepdim=True).clamp_min(1e-8)
+    l_id = (1.0 - (unit(f_gen) * unit(f_src)).sum(1)).mean()
+    ev[3].record()
+    l_lpips = crit.lpips(img_gen, img_tgt)
+    ev[4].record()
+    loss = l_id + l_lpips + crit.lambda_cons * (w_sty_new - w_sty_tgt.detach()
+                                                ).abs().mean()
+    loss.backward()
+    ev[5].record()
+    torch.cuda.synchronize()
+    names = ("h", "generator", "arcface", "lpips", "backward")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def write_val_pack(train_dir: Path, out: Path, n: int) -> None:
+    """The first ``n`` w+ of phase 5's train pack, with labels and paths."""
+    out.mkdir(parents=True)
+    with np.load(train_dir / "latents_pack_0000.npz") as z:
+        np.savez(out / "latents_pack_0000.npz", latents=z["latents"][:n],
+                 labels=z["labels"][:n], paths=z["paths"][:n])
+
+
+def afs_train(torch, argv) -> tuple:
+    """``train_style_extractor.main`` on the card with the kernel counts
+    set to 0 just before and read just after -> (result, counts,
+    seconds)."""
+    from fer_vit_tpu_torch.afs import train_style_extractor as tse
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    res = tse.main(tse.build_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    return res, kernel_counts(), time.perf_counter() - t0
+
+
+def check_afs_outdir(torch, out: Path, epochs: int, what: str) -> list:
+    cfg = json.loads((out / "config.json").read_text())
+    check({"latent_dir", "psp_path", "provider", "resume"} <= set(cfg),
+          f"{what}: config.json keys {sorted(cfg)}")
+    log_ = json.loads((out / "train_log.json").read_text())
+    check([e["epoch"] for e in log_] == list(range(1, epochs + 1)),
+          f"{what}: epochs {[e['epoch'] for e in log_]}")
+    keys = {"epoch", "lr", "seconds"} | {
+        f"{s}_{k}" for s in ("train", "val") for k in ("loss", "id", "lpips",
+                                                       "cons")}
+    for e in log_:
+        check(set(e) == keys and all(np.isfinite(v) for v in e.values()),
+              f"{what}: log entry {e}")
+    for name in ("last_model.pt", "best_model.pt"):
+        payload = torch.load(out / "checkpoints" / name, map_location="cpu",
+                             weights_only=True)
+        check(set(payload) == {"epoch", "params", "batch_stats", "opt_state",
+                               "log", "best_loss", "log_history"},
+              f"{what}: {name} keys {sorted(payload)}")
+    return log_
+
+
+def afs_lockstep(torch, gen_sd, arc_sd, lpips_sd, latents) -> dict:
+    """AFS_LOCK_STEPS training steps (provider A, fixed pairs) on the CPU
+    in f32; before each, the card (f32, then the generator in bf16) takes
+    the CPU's state (h, its running statistics, Adam's moments) and runs
+    the same step."""
+    from fer_vit_tpu_torch.afs import AFSLoss, StyleExtractor
+    from fer_vit_tpu_torch.afs.train_style_extractor import make_train_step
+
+    n_latent = 2 * int(math.log2(AFS_LOCK_SIZE)) - 2
+    latents = np.ascontiguousarray(latents[:, :n_latent])  # 14 of 18 at 256
+
+    def build(device, dtype):
+        gen = afs_generator(torch, gen_sd, AFS_LOCK_SIZE, device, dtype)
+        crit = AFSLoss(arc_sd, lpips_sd).to(device)
+        h = StyleExtractor(n_layers=n_latent,
+                           generator=torch.Generator().manual_seed(63)
+                           ).to(device)
+        opt = torch.optim.Adam(h.parameters(), lr=AFS_LR, betas=(0.9, 0.999),
+                               eps=1e-8)
+        return h, opt, make_train_step(h, gen, crit, opt, True)[0]
+
+    runs = {"cpu": build("cpu", torch.float32),
+            "f32": build("cuda", torch.float32),
+            "bf16": build("cuda", torch.bfloat16)}
+    rng = np.random.default_rng(64)
+    n = latents.shape[0]
+    worst = {"loss": 0.0, "grad": 0.0, "stat": 0.0, "param": 0.0,
+             "bf16_loss": 0.0}
+    h_cpu, opt_cpu, step_cpu = runs["cpu"]
+    for s in range(AFS_LOCK_STEPS):
+        src = rng.integers(0, n, AFS_LOCK_BATCH)
+        tgt = (src + rng.integers(1, n, AFS_LOCK_BATCH)) % n
+        w_src = torch.from_numpy(latents[src])
+        w_tgt = torch.from_numpy(latents[tgt])
+        h_state = copy.deepcopy(h_cpu.state_dict())
+        opt_state = copy.deepcopy(opt_cpu.state_dict())
+        for name in ("f32", "bf16"):
+            h, opt, _ = runs[name]
+            h.load_state_dict(h_state)
+            opt.load_state_dict(opt_state)
+        loss, m = step_cpu(AFS_LR, w_src, w_tgt)
+        ref = {"loss": loss, **m}
+        ref_grad = torch.cat([p.grad.reshape(-1) for p in h_cpu.parameters()])
+        for name in ("f32", "bf16"):
+            h, _, step = runs[name]
+            loss_k, m_k = step(AFS_LR, w_src.cuda(), w_tgt.cuda())
+            got = {"loss": loss_k, **m_k}
+            d = {k: abs(float(got[k]) - float(ref[k])) / abs(float(ref[k]))
+                 for k in ref}
+            if name == "bf16":
+                worst["bf16_loss"] = max(worst["bf16_loss"], *d.values())
+                continue
+            worst["loss"] = max(worst["loss"], *d.values())
+            for k, v in d.items():
+                worst[f"part {k}"] = max(worst.get(f"part {k}", 0.0), v)
+            grad = torch.cat([p.grad.reshape(-1) for p in h.parameters()]
+                             ).cpu()
+            worst["grad"] = max(worst["grad"], float(
+                (grad - ref_grad).norm() / ref_grad.norm()))
+            got_sd, ref_sd = h.state_dict(), h_cpu.state_dict()
+            for k, v in ref_sd.items():
+                if k.endswith(("running_mean", "running_var")):
+                    worst["stat"] = max(worst["stat"],
+                                        rel(torch, got_sd[k], v))
+                elif not k.endswith("num_batches_tracked"):
+                    worst["param"] = max(worst["param"], float(
+                        (got_sd[k].cpu() - v).abs().max()))
+    return worst
+
+
+def phase_afs(torch, dev_info, root: Path) -> dict:
+    """AFS on phase 5's packs and faces: the 1024 px generator (weights
+    through a pSp-format file and the converter CLI), IR-SE50 ArcFace and
+    LPIPS at batch 8, card against CPU; ``train_style_extractor`` with
+    provider A for 2 epochs, resumed for a third, and provider B for 1;
+    a step split by part; 3 steps in lockstep at 256 px."""
+    from fer_vit_tpu_torch.afs import (AFSLoss, DiskImageProvider,
+                                       PairLatentStore, StyleExtractor)
+    from fer_vit_tpu_torch.data.latent_store import LatentStore
+    from fer_vit_tpu_torch.encoders import convert_stylegan2
+    from fer_vit_tpu_torch.encoders.stylegan2 import face_pool
+    from fer_vit_tpu_torch.interop.from_jax import (
+        arcface_state_dict_from_jax, load_npz_variables,
+        lpips_state_dict_from_jax, save_npz_variables,
+        stylegan2_state_dict_from_jax)
+
+    afs = root / "afs"
+    afs.mkdir()
+    zero = dict.fromkeys(KERNEL_META, 0)
+    out = {"launches": {}}
+
+    # 1. generator weights: a pSp-format .pt -> the converter CLI -> .npz
+    t0 = time.perf_counter()
+    sg_sd = stylegan2_state_dict_from_jax(stylegan2_jax_variables())
+    torch.save({"state_dict": {f"decoder.{k}": v for k, v in sg_sd.items()},
+                "latent_avg": torch.zeros(18, 512)}, afs / "psp.pt")
+    convert_stylegan2.main([str(afs / "psp.pt"), str(afs / "g.npz")])
+    back = stylegan2_state_dict_from_jax(load_npz_variables(
+        str(afs / "g.npz")))
+    check(set(back) == set(sg_sd) and all(torch.equal(back[k], v)
+                                          for k, v in sg_sd.items()),
+          "convert_stylegan2: the .npz does not give back the weights")
+    arc_vars = arcface_jax_variables()
+    lpips_vars = lpips_jax_variables()
+    save_npz_variables(arc_vars, str(afs / "arc.npz"))
+    save_npz_variables(lpips_vars, str(afs / "lpips.npz"))
+    arc_sd = arcface_state_dict_from_jax(arc_vars)
+    lpips_sd = lpips_state_dict_from_jax(lpips_vars)
+    log(f"afs: seeded weights, pSp .pt -> convert_stylegan2 -> .npz bit for "
+        f"bit ({sum(v.numel() for v in sg_sd.values()) / 1e6:.1f} M "
+        f"generator values), {time.perf_counter() - t0:.1f} s")
+
+    # 2. the generator at batch 8: time, memory, card vs CPU
+    val = LatentStore.load(str(root / "latents_val"))
+    w8 = torch.from_numpy(val.latents[:AFS_BATCH]).cuda()
+    gen = afs_generator(torch, sg_sd, AFS_SIZE, "cuda")
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: gen([w8]), reps=3, warmup=1)
+        img8 = gen([w8])[0]
+    torch.cuda.synchronize()
+    out["launches"]["afs generator"] = kernel_counts()
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    check(img8.shape == (AFS_BATCH, AFS_SIZE, AFS_SIZE, 3)
+          and img8.dtype == torch.bfloat16
+          and bool(torch.isfinite(img8).all()), "generator output")
+    w2 = torch.from_numpy(val.latents[:AFS_GEN_CHECK])
+    gen_cpu = afs_generator(torch, sg_sd, AFS_SIZE, "cpu", torch.float32)
+    gen32 = afs_generator(torch, sg_sd, AFS_SIZE, "cuda", torch.float32)
+    with torch.no_grad():
+        ref = gen_cpu([w2])[0]
+        d_f32 = rel(torch, gen32([w2.cuda()])[0], ref)
+        d_bf16 = rel(torch, gen([w2.cuda()])[0], ref)
+    del gen_cpu, gen32
+    res = {"ms": ms, "images_per_s": AFS_BATCH / ms * 1e3,
+           "peak_gib": peak, "d_f32": d_f32, "d_bf16": d_bf16}
+    out["generator"] = res
+    log(f"afs generator {AFS_SIZE} px, bf16, batch {AFS_BATCH}: {ms:.2f} ms "
+        f"({res['images_per_s']:.1f} images/s), peak {peak:.2f} GiB above "
+        f"its weights; card vs CPU f32 on {AFS_GEN_CHECK} w+: f32 "
+        f"{d_f32:.3e} (tol {AFS_GEN_F32_RTOL}), bf16 {d_bf16:.3e} (tol "
+        f"{AFS_GEN_BF16_RTOL}); launches {out['launches']['afs generator']}")
+    check(out["launches"]["afs generator"] == zero,
+          f"afs generator launched {out['launches']['afs generator']}")
+    check(d_f32 <= AFS_GEN_F32_RTOL and d_bf16 <= AFS_GEN_BF16_RTOL,
+          "generator: the card disagrees with the CPU")
+
+    # 3. ArcFace and LPIPS at batch 8 on the generator's pooled images
+    imgs = face_pool(img8, 256).float()
+    imgs2 = imgs.flip(0)
+    crit = AFSLoss(arc_sd, lpips_sd).cuda()
+    crit_cpu = AFSLoss(arc_sd, lpips_sd)
+    reset_kernel_counts()
+    with torch.no_grad():
+        arc_ms = time_ms(torch, lambda: crit.arcface(imgs), reps=5)
+        lpips_ms = time_ms(torch, lambda: crit.lpips(imgs, imgs2), reps=5)
+        emb, dist = crit.arcface(imgs), crit.lpips(imgs, imgs2)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        emb_ref = crit_cpu.arcface(imgs.cpu())
+        dist_ref = crit_cpu.lpips(imgs.cpu(), imgs2.cpu())
+    d_arc, d_lpips = rel(torch, emb, emb_ref), rel(torch, dist, dist_ref)
+    out["nets"] = {"arcface_ms": arc_ms, "lpips_ms": lpips_ms,
+                   "d_arcface": d_arc, "d_lpips": d_lpips}
+    out["launches"]["afs losses"] = counts
+    log(f"afs ArcFace IR-SE50 {arc_ms:.2f} ms, LPIPS-alex {lpips_ms:.2f} ms "
+        f"per batch of {AFS_BATCH} (f32); card vs CPU f32: embeddings "
+        f"{d_arc:.3e}, distance {d_lpips:.3e} (tol {AFS_NET_F32_RTOL}); "
+        f"launches {counts}")
+    check(counts == zero, f"afs nets launched {counts}")
+    check(d_arc <= AFS_NET_F32_RTOL and d_lpips <= AFS_NET_F32_RTOL,
+          "ArcFace or LPIPS: the card disagrees with the CPU")
+    del crit_cpu
+
+    # 4. the trainer: provider A for 2 epochs, resumed for a third; B for 1
+    write_val_pack(root / "latents_train", afs / "val48", AFS_VAL_N)
+    common = ["--latent_dir", str(root / "latents_val"),
+              "--val_latent_dir", str(afs / "val48"),
+              "--psp_path", str(afs / "g.npz"),
+              "--arcface_path", str(afs / "arc.npz"),
+              "--lpips_path", str(afs / "lpips.npz"),
+              "--batch_size", str(AFS_BATCH),
+              "--generator_size", str(AFS_SIZE)]
+    run_a = afs / "run_a"
+    runs = {}
+    for name, argv, epochs in (
+            ("a", ["--provider", "a", "--epochs", str(AFS_EPOCHS)], 2),
+            ("a resumed", ["--provider", "a", "--epochs",
+                           str(AFS_EPOCHS + 1), "--resume",
+                           str(run_a / "checkpoints" / "last_model.pt")], 3),
+            ("b", ["--provider", "b", "--epochs", "1", "--img_root",
+                   str(root / "val"), "--val_img_root", str(root / "train"),
+                   "--out_dir", str(afs / "run_b")], 1)):
+        argv = common + (["--out_dir", str(run_a)] if name != "b" else []) \
+            + argv
+        res_, counts, secs = afs_train(torch, argv)
+        log_ = check_afs_outdir(torch, run_a if name != "b" else afs / "run_b",
+                                epochs, f"train_style_extractor {name}")
+        steps = max(1, len(val) // AFS_BATCH)
+        val_steps = max(1, AFS_VAL_N // AFS_BATCH)
+        new = log_[-1:] if name == "a resumed" else log_
+        rates = [round(steps / e["seconds"], 3) for e in new]
+        runs[name] = {"seconds": round(secs, 1), "steps_per_s": rates,
+                      "train_loss": [round(e["train_loss"], 5) for e in new]}
+        out["launches"][f"afs training {name}"] = counts
+        log(f"afs train_style_extractor provider {name}: {len(new)} epoch(s) "
+            f"of {steps} steps + {val_steps} val steps, {rates} train "
+            f"steps/s (each epoch's seconds include its validation), "
+            f"{secs:.1f} s with loading; train_loss "
+            f"{runs[name]['train_loss']}; launches {counts}")
+        check(counts == zero, f"afs training {name} launched {counts}")
+    out["training"] = runs
+
+    # one provider-A step split by part; provider B's PIL share
+    store = PairLatentStore.load(str(root / "latents_val"))
+    lat = store.device_latents("cuda")
+    h = StyleExtractor(n_layers=store.store.seq_len,
+                       generator=torch.Generator().manual_seed(65)).cuda()
+    idx = torch.arange(2 * AFS_BATCH, device="cuda")
+    w_src, w_tgt = lat[idx[:AFS_BATCH]], lat[idx[AFS_BATCH:]]
+    afs_step_split(torch, h, gen, crit, w_src, w_tgt)  # warm
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    split = afs_step_split(torch, h, gen, crit, w_src, w_tgt)
+    step_peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+    disk = DiskImageProvider(str(root / "val"), device="cuda")
+    paths = store.img_paths[:2 * AFS_BATCH]
+    t0 = time.perf_counter()
+    host = disk.load(paths)
+    pil_ms = (time.perf_counter() - t0) * 1e3
+    img_src = torch.from_numpy(host[:AFS_BATCH]).cuda()
+    img_tgt = torch.from_numpy(host[AFS_BATCH:]).cuda()
+    split_b = afs_step_split(torch, h, gen, crit, w_src, w_tgt, img_src,
+                             img_tgt)
+    step_b = sum(split_b.values())
+    out["split"] = {"a": split, "b": split_b, "pil_ms": pil_ms,
+                    "pil_share_b": pil_ms / (pil_ms + step_b),
+                    "peak_gib_a": step_peak}
+    log(f"afs step split, provider A (ms): "
+        f"{ {k: round(v, 2) for k, v in split.items()} }, "
+        f"{sum(split.values()):.2f} in all, peak {step_peak:.2f} GiB above "
+        f"the models and latents; provider B: "
+        f"{ {k: round(v, 2) for k, v in split_b.items()} } and PIL "
+        f"{pil_ms:.1f} ms for {2 * AFS_BATCH} images (share "
+        f"{out['split']['pil_share_b']:.3f})")
+    del gen, crit
+
+    # 5. lockstep at 256 px: card f32 (and bf16, the loss) vs CPU f32
+    lock_sd = stylegan2_state_dict_from_jax(stylegan2_jax_variables(
+        size=AFS_LOCK_SIZE, seed=66))
+    worst = afs_lockstep(torch, lock_sd, arc_sd, lpips_sd, val.latents)
+    out["lockstep"] = worst
+    log(f"afs lockstep, {AFS_LOCK_STEPS} steps at {AFS_LOCK_SIZE} px, batch "
+        f"{AFS_LOCK_BATCH}: card f32 vs CPU f32 loss and parts "
+        f"{worst['loss']:.3e} (tol {AFS_LOCK_LOSS_RTOL}; by part "
+        f"{ {k[5:]: f'{v:.2e}' for k, v in worst.items() if k[:5] == 'part '} }"
+        f"), gradients "
+        f"{worst['grad']:.3e} (tol {AFS_LOCK_GRAD_RTOL}), running statistics "
+        f"{worst['stat']:.3e} (tol {AFS_LOCK_STAT_RTOL}), parameters "
+        f"{worst['param']:.3e} (tol {AFS_LOCK_PARAM_ATOL}); bf16 loss "
+        f"{worst['bf16_loss']:.3e} (tol {AFS_LOCK_BF16_RTOL})")
+    check(worst["loss"] <= AFS_LOCK_LOSS_RTOL
+          and worst["grad"] <= AFS_LOCK_GRAD_RTOL
+          and worst["stat"] <= AFS_LOCK_STAT_RTOL
+          and worst["param"] <= AFS_LOCK_PARAM_ATOL
+          and worst["bf16_loss"] <= AFS_LOCK_BF16_RTOL,
+          "afs lockstep: the card disagrees with the CPU")
+    return out
+
 
 if __name__ == "__main__":
     try:

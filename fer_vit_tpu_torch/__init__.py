@@ -12,7 +12,10 @@ Package map:
   unit, fused attention) with their plain versions
 * :mod:`fer_vit_tpu_torch.nn`       — transformer layers and initializers
 * :mod:`fer_vit_tpu_torch.models`   — LatentViT, ImageViT and TimmViT
-* :mod:`fer_vit_tpu_torch.encoders` — pSp GradualStyleEncoder over IR-SE50
+* :mod:`fer_vit_tpu_torch.encoders` — pSp GradualStyleEncoder over IR-SE50;
+  for AFS the StyleGAN2 generator, ArcFace (IR-SE50) and LPIPS-alex
+* :mod:`fer_vit_tpu_torch.afs`      — the AFS style extractor, its losses,
+  pair sampling, image providers and trainer
 * :mod:`fer_vit_tpu_torch.data`     — the image store, augmentation and
   normalisation, image packs, latent production (``generate_latents``, the
   native image decoder), the latent store, latent augmentation and splits
@@ -39,7 +42,9 @@ fer_vit_tpu_torch.eval.evaluate_model``, ``python -m
 fer_vit_tpu_torch.eval.evaluate_image_vit`` and ``python -m
 fer_vit_tpu_torch.analysis.expression_directions`` (``--device cpu`` for
 the CPU), and ``python -m
-fer_vit_tpu_torch.interop.export_torch_checkpoint``.
+fer_vit_tpu_torch.interop.export_torch_checkpoint``, ``python -m
+fer_vit_tpu_torch.encoders.convert_stylegan2`` (host only) and ``python -m
+fer_vit_tpu_torch.afs.train_style_extractor``.
 """
 
 __version__ = "0.1.0"

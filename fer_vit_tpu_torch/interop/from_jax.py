@@ -22,6 +22,14 @@ imports JAX) and writes the port's state dict:
   ``fer_vit_tpu/interop/torch_state.py``'s tables.
 * :func:`state_dict_from_jax`: one of them, picked from a checkpoint's
   model config.
+* AFS: :func:`stylegan2_state_dict_from_jax` (``Generator`` params and
+  ``noises``, NHWC -> rosinality's names and layout),
+  :func:`arcface_state_dict_from_jax` (params and ``batch_stats`` ->
+  InsightFace's names), :func:`lpips_state_dict_from_jax` (-> torchvision's
+  and lpips' names), :func:`style_extractor_state_dict_from_jax` (the
+  stacked params and ``batch_stats``), and
+  :func:`read_style_extractor_checkpoint`, the JAX AFS trainer's msgpack
+  checkpoints into the port's ``StyleExtractor``.
 
 It also keeps its own copy of the ``.npz`` (de)serialisation that
 ``convert_psp.py`` writes.
@@ -77,15 +85,10 @@ def _units(backbone: Mapping) -> list:
     return sorted(idx)
 
 
-def psp_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
-    """JAX ``PSpEncoder`` variables (``params``, ``batch_stats``,
-    ``constants``; numpy or JAX arrays) -> the port's ``PSpEncoder`` state
-    dict. An unfused tree gives an unfused state dict and a folded tree
-    (``fuse_bn=True``) a folded one."""
-    params = variables["params"]
-    stats = variables.get("batch_stats", {})
-    bb, bbs = params["backbone"], stats.get("backbone", {})
-    sd: Dict[str, Tensor] = {}
+def _trunk(sd: Dict[str, Tensor], bb: Mapping, bbs: Mapping) -> None:
+    """An IR-SE trunk's input layer and units (``input_conv``,
+    ``input_bn``, ``input_prelu``, ``body_{i}``) -> ``input_layer.*`` and
+    ``body.{i}.*``."""
     _conv(sd, "input_layer.0", bb["input_conv"])
     _bn(sd, "input_layer.1", bb, bbs, "input_bn")
     sd["input_layer.2.weight"] = _t(bb["input_prelu"]["alpha"])
@@ -102,6 +105,17 @@ def psp_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
         if "shortcut_conv" in u:
             _conv(sd, f"body.{i}.shortcut_layer.0", u["shortcut_conv"])
             _bn(sd, f"body.{i}.shortcut_layer.1", u, us, "shortcut_bn")
+
+
+def psp_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
+    """JAX ``PSpEncoder`` variables (``params``, ``batch_stats``,
+    ``constants``; numpy or JAX arrays) -> the port's ``PSpEncoder`` state
+    dict. An unfused tree gives an unfused state dict and a folded tree
+    (``fuse_bn=True``) a folded one."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, Tensor] = {}
+    _trunk(sd, params["backbone"], stats.get("backbone", {}))
     for name in ("latlayer1", "latlayer2"):
         _conv(sd, name, params[name])
     k = 0  # style heads, unstacked in coarse, middle, fine order
@@ -338,6 +352,146 @@ def hybrid_latent_vit_state_dict_from_jax(params: Mapping
     _norm(sd, "head.0", p["head_norm"])
     _linear(sd, "head.2", p["head"])
     return sd
+
+
+# -- AFS: the StyleGAN2 generator, ArcFace, LPIPS, the style extractor --------
+
+
+def _modconv(sd: Dict[str, Tensor], prefix: str, node: Mapping) -> None:
+    """A modulated conv: HWIO weight -> rosinality's (1, O, I, k, k), and
+    its modulation EqualLinear (kernel (in, out) -> weight (out, in))."""
+    sd[f"{prefix}.weight"] = _t(np.transpose(_np(node["weight"]),
+                                             (3, 2, 0, 1))[None])
+    _linear(sd, f"{prefix}.modulation", node["modulation"])
+
+
+def stylegan2_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
+    """JAX ``Generator`` variables (``params`` and ``noises``, NHWC) -> the
+    port's ``Generator`` state dict with rosinality's names: the exact
+    inverse of ``convert_stylegan2.py::convert_generator_state_dict``,
+    plus the blur kernels (constants the JAX tree does not carry)."""
+    from fer_vit_tpu_torch.encoders.stylegan2 import make_blur_kernel
+
+    p = variables["params"]
+    sd: Dict[str, Tensor] = {}
+    n_mlp = sum(1 for k in p if re.fullmatch(r"style_\d+", k))
+    for i in range(n_mlp):
+        _linear(sd, f"style.{i + 1}", p[f"style_{i}"])
+    sd["input.input"] = _t(np.transpose(_np(p["input"]), (0, 3, 1, 2)))
+
+    def styled(prefix: str, node: Mapping) -> None:
+        _modconv(sd, f"{prefix}.conv", node["conv"])
+        sd[f"{prefix}.noise.weight"] = _t(_np(node["noise_weight"]
+                                              ).reshape(1))
+        sd[f"{prefix}.activate.bias"] = _t(node["bias"])
+
+    def to_rgb(prefix: str, node: Mapping) -> None:
+        _modconv(sd, f"{prefix}.conv", node["conv"])
+        sd[f"{prefix}.bias"] = _t(_np(node["bias"]).reshape(1, 3, 1, 1))
+
+    blur = make_blur_kernel(gain=4.0)
+    styled("conv1", p["conv1"])
+    to_rgb("to_rgb1", p["to_rgb1"])
+    n_convs = sum(1 for k in p if re.fullmatch(r"convs_\d+", k))
+    for i in range(n_convs):
+        styled(f"convs.{i}", p[f"convs_{i}"])
+        if i % 2 == 0:  # the up-sampling conv of each resolution
+            sd[f"convs.{i}.conv.blur.kernel"] = blur.clone()
+    for j in range(n_convs // 2):
+        to_rgb(f"to_rgbs.{j}", p[f"to_rgbs_{j}"])
+        sd[f"to_rgbs.{j}.upsample.kernel"] = blur.clone()
+    noises = variables["noises"]
+    for k in range(len(noises)):
+        sd[f"noises.noise_{k}"] = _t(np.transpose(
+            _np(noises[f"noise_{k}"]), (0, 3, 1, 2)))
+    return sd
+
+
+def arcface_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
+    """JAX ``ArcFaceExtractor`` variables (``params`` and ``batch_stats``,
+    each under ``net``) -> the port's ``ArcFaceExtractor`` state dict with
+    InsightFace's names: the inverse of ``fer_vit_tpu/encoders/arcface.py::
+    convert_arcface_state_dict``."""
+    p = variables["params"]["net"]
+    st = variables.get("batch_stats", {}).get("net", {})
+    sd: Dict[str, Tensor] = {}
+    _trunk(sd, p, st)
+    _bn(sd, "output_layer.0", p, st, "output_bn2d")
+    _linear(sd, "output_layer.3", p["output_linear"])
+    _bn(sd, "output_layer.4", p, st, "output_bn1d")
+    return sd
+
+
+def lpips_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
+    """JAX ``LPIPS`` params (``net/conv_{i}``, ``lin_{i}`` (1, 1, C, 1))
+    -> the port's ``LPIPS`` state dict (``net.features.{0,3,6,8,10}``,
+    ``lin{i}.model.1.weight`` (1, C, 1, 1))."""
+    from fer_vit_tpu_torch.encoders.lpips import CONV_INDEX
+
+    p = variables.get("params", variables)
+    sd: Dict[str, Tensor] = {}
+    for i, ci in enumerate(CONV_INDEX):
+        _conv(sd, f"net.features.{ci}", p["net"][f"conv_{i}"])
+        sd[f"lin{i}.model.1.weight"] = _t(np.transpose(
+            _np(p[f"lin_{i}"]), (3, 2, 0, 1)))
+    return sd
+
+
+def style_extractor_state_dict_from_jax(variables: Mapping
+                                        ) -> Dict[str, Tensor]:
+    """JAX ``StyleExtractor`` variables (``params`` and ``batch_stats``,
+    every leaf stacked over the W+ layer axis by ``nn.vmap``) -> the
+    port's ``StyleExtractor`` state dict: the stacked (L, in, out) kernels
+    and (L, out) biases as they are, each Highway BatchNorm's (L, C)
+    scale, bias, mean and var flattened to (L * C,)."""
+    p = variables["params"]["blocks"]
+    st = variables.get("batch_stats", {}).get("blocks", {})
+    sd: Dict[str, Tensor] = {}
+
+    def stacked(prefix: str, node: Mapping) -> None:
+        sd[f"{prefix}.weight"] = _t(node["kernel"])
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    stacked("blocks.down", p["down"])
+    n_hw = sum(1 for k in p if re.fullmatch(r"highway_\d+", k))
+    for j in range(n_hw):
+        hw, t = p[f"highway_{j}"], f"blocks.highways.{j}"
+        for name in ("nonlinear", "linear", "gate"):
+            stacked(f"{t}.{name}", hw[name])
+        bn = st[f"highway_{j}"]["bn"] if st else None
+        scale = _np(hw["bn"]["scale"]).reshape(-1)
+        sd[f"{t}.bn.weight"] = _t(scale)
+        sd[f"{t}.bn.bias"] = _t(_np(hw["bn"]["bias"]).reshape(-1))
+        sd[f"{t}.bn.running_mean"] = _t(
+            _np(bn["mean"]).reshape(-1) if bn else np.zeros_like(scale))
+        sd[f"{t}.bn.running_var"] = _t(
+            _np(bn["var"]).reshape(-1) if bn else np.ones_like(scale))
+        sd[f"{t}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    stacked("blocks.up", p["up"])
+    return sd
+
+
+def read_style_extractor_checkpoint(path: str) -> dict:
+    """The JAX AFS trainer's ``best_model.pt`` / ``last_model.pt`` (one
+    msgpack map whose ``params``, ``batch_stats`` and ``opt_state`` are
+    themselves msgpack bytes of ``flax.serialization.to_bytes``) ->
+    ``{"epoch", "state_dict" (the port's StyleExtractor), "log",
+    "best_loss", "log_history"}``, the JSON fields parsed."""
+    import json
+
+    from fer_vit_tpu_torch.interop.flax_msgpack import msgpack_restore
+
+    with open(path, "rb") as f:
+        payload = msgpack_restore(f.read())
+    if not isinstance(payload, dict) or "params" not in payload:
+        raise ValueError(f"{path} is not a JAX AFS trainer checkpoint")
+    variables = {"params": msgpack_restore(payload["params"]),
+                 "batch_stats": msgpack_restore(payload["batch_stats"])}
+    return {"epoch": int(payload["epoch"]),
+            "state_dict": style_extractor_state_dict_from_jax(variables),
+            "log": json.loads(payload["log"]),
+            "best_loss": float(json.loads(payload["best_loss"])),
+            "log_history": json.loads(payload["log_history"])}
 
 
 # each takes the variables tree (``params``, and ``batch_stats`` where the

@@ -20,8 +20,10 @@ adjustments, each as the JAX converters make it:
 
 Files are read with ``torch.load(weights_only=True)``, with
 ``argparse.Namespace`` and the numpy scalar types a metrics dict may hold
-allowed. The JAX package's ``style_extractor_*`` pair belongs to AFS and is
-not ported here.
+allowed. The AFS style extractor's pair
+(:func:`style_extractor_to_torch_state_dict`,
+:func:`style_extractor_from_torch_state_dict`) maps the port's stacked
+layout to the reference's per-block names and back.
 """
 
 from __future__ import annotations
@@ -181,3 +183,78 @@ def to_torch_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
         groups[12:] = 2
         sd["spe.groups"] = groups
     return sd
+
+
+# -- AFS StyleExtractor: stacked blocks <-> the reference's per-block names --
+
+def _se_linears(n_hw: int) -> list:
+    """(reference name, port name) of every stacked linear: ``down``,
+    ``up`` and each highway's ``nonlinear`` (the reference's
+    Sequential(Linear, BatchNorm1d), so ``nonlinear.0``), ``linear`` and
+    ``gate``."""
+    subs = [("down", "blocks.down"), ("up", "blocks.up")]
+    for j in range(n_hw):
+        subs.append((f"highways.{j}.nonlinear.0",
+                     f"blocks.highways.{j}.nonlinear"))
+        subs += [(f"highways.{j}.{name}", f"blocks.highways.{j}.{name}")
+                 for name in ("linear", "gate")]
+    return subs
+
+
+def style_extractor_to_torch_state_dict(model_or_sd
+                                        ) -> Dict[str, torch.Tensor]:
+    """The port's ``StyleExtractor`` (or its state dict) -> the reference's
+    per-block names (reference afs/style_extractor.py:76-116):
+    ``blocks.{i}.down/up`` and ``blocks.{i}.highways.{j}.{nonlinear.0,
+    nonlinear.1, linear, gate}`` with ``nonlinear.1`` a BatchNorm1d
+    (``num_batches_tracked`` 0), CPU copies; as
+    ``fer_vit_tpu/interop/torch_state.py:474-524``."""
+    sd = (model_or_sd.state_dict() if isinstance(model_or_sd, torch.nn.Module)
+          else model_or_sd)
+    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    n_layers = sd["blocks.down.weight"].shape[0]
+    n_hw = len({k.split(".")[2] for k in sd
+                if k.startswith("blocks.highways.")})
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(n_layers):
+        pre = f"blocks.{i}"
+        for sub, src in _se_linears(n_hw):
+            out[f"{pre}.{sub}.weight"] = sd[f"{src}.weight"][i].t().contiguous()
+            out[f"{pre}.{sub}.bias"] = sd[f"{src}.bias"][i].clone()
+        for j in range(n_hw):
+            bn, b = f"blocks.highways.{j}.bn", f"{pre}.highways.{j}.nonlinear.1"
+            for leaf in ("weight", "bias", "running_mean", "running_var"):
+                out[f"{b}.{leaf}"] = sd[f"{bn}.{leaf}"].view(
+                    n_layers, -1)[i].clone()
+            out[f"{b}.num_batches_tracked"] = torch.zeros((),
+                                                          dtype=torch.long)
+    return out
+
+
+def style_extractor_from_torch_state_dict(sd: Dict[str, Any]
+                                          ) -> Dict[str, torch.Tensor]:
+    """The reference's per-block state dict -> the port's stacked
+    ``StyleExtractor`` state dict (``num_batches_tracked`` 0): the inverse
+    of :func:`style_extractor_to_torch_state_dict`, as
+    ``fer_vit_tpu/interop/torch_state.py:527-572``."""
+    sd = {k: torch.as_tensor(v).detach().cpu() for k, v in sd.items()}
+    n_layers = 1 + max(int(k.split(".")[1]) for k in sd
+                       if k.startswith("blocks."))
+    n_hw = len({k.split(".")[3] for k in sd
+                if k.startswith("blocks.0.highways.")})
+
+    def stack(sub: str, leaf: str, transpose: bool = False) -> torch.Tensor:
+        parts = [sd[f"blocks.{i}.{sub}.{leaf}"] for i in range(n_layers)]
+        return torch.stack([t.t() if transpose else t for t in parts]
+                           ).contiguous()
+
+    out: Dict[str, torch.Tensor] = {}
+    for sub, dst in _se_linears(n_hw):
+        out[f"{dst}.weight"] = stack(sub, "weight", transpose=True)
+        out[f"{dst}.bias"] = stack(sub, "bias")
+    for j in range(n_hw):
+        sub, bn = f"highways.{j}.nonlinear.1", f"blocks.highways.{j}.bn"
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{bn}.{leaf}"] = stack(sub, leaf).reshape(-1)
+        out[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return out

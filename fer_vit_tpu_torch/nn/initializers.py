@@ -86,3 +86,17 @@ def normal_init_(t: torch.Tensor, std: float,
     """N(0, std), in place."""
     with torch.no_grad():
         t.copy_(torch.randn(t.shape, generator=generator) * std)
+
+
+def torch_default_init_(module: nn.Module,
+                        generator: Optional[torch.Generator]) -> None:
+    """torch's default init of every ``nn.Conv2d`` and ``nn.Linear`` in
+    ``module`` (:func:`torch_conv_kernel_init_`, bias U(+-1/sqrt(fan_in))),
+    drawn from ``generator``; other modules keep their constructors'
+    values (BatchNorm 1 and 0, PReLU 0.25)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            torch_conv_kernel_init_(m.weight, generator)
+            if m.bias is not None:
+                torch_linear_bias_init_(m.bias, m.weight[0].numel(),
+                                        generator)

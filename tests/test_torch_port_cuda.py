@@ -8,7 +8,9 @@ the latent production and training slice: the fused unit at
 ``generate_latents``' batch of 256, the training harness's f32 steps on the
 card against the CPU, and ``generate_latents`` on a few images with its
 launch counts; the SVM directions and SeFa's eigh on the card against the
-CPU, and the image evaluator's K2 launches. Marked
+CPU, and the image evaluator's K2 launches; the AFS modules (the StyleGAN2
+generator, ArcFace, LPIPS, the style extractor and a training step)
+against the CPU, with none of the kernels launched. Marked
 ``cuda``; they skip without a CUDA device. This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed::
@@ -576,3 +578,139 @@ def test_evaluate_image_vit_launches_k2(smoke, tmp_path):
                           ).read_text())
     assert results["test_dataset_size"] == 21
     assert (tmp_path / "out" / "evaluation_report.json").exists()
+
+
+# -- AFS ----------------------------------------------------------------------
+
+# Card f32 (TF32 off) against CPU f32, relative to the CPU output's largest
+# magnitude: the same arithmetic in other orders. The generator in bf16
+# against f32: 8 bits of mantissa through its layers. A training step: the
+# loss and its parts (relative; L_id = mean(1 - cos) magnifies the
+# embeddings' rounding) and h's clipped gradients (relative L2). The
+# limits are chip_smoke.py's phase 10 ones, set from its readings there.
+AFS_F32_RTOL = 1e-4
+AFS_BF16_RTOL = 5e-2
+AFS_H_RTOL = 1e-4
+AFS_STEP_LOSS_RTOL = 1e-4
+AFS_STEP_GRAD_RTOL = 2e-3
+
+
+def _afs_counts():
+    from fer_vit_tpu_torch.ops import flash_attention
+
+    torch.cuda.synchronize()
+    return {**fused_irse_residual.kernel_launches,
+            **flash_attention.fused_attention.kernel_launches}
+
+
+def _afs_reset():
+    fu.reset_launch_counts()
+    reset_launch_counts()
+
+
+def _rel(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _afs_generator(smoke, size, device, dtype):
+    from fer_vit_tpu_torch.encoders.stylegan2 import Generator
+    from fer_vit_tpu_torch.interop.from_jax import (
+        stylegan2_state_dict_from_jax)
+
+    gen = Generator(size=size, dtype=dtype)
+    gen.load_state_dict(stylegan2_state_dict_from_jax(
+        smoke.stylegan2_jax_variables(size=size, seed=70)), strict=True)
+    return gen.requires_grad_(False).to(device)
+
+
+def _afs_loss(smoke, device):
+    from fer_vit_tpu_torch.afs import AFSLoss
+    from fer_vit_tpu_torch.interop.from_jax import (
+        arcface_state_dict_from_jax, lpips_state_dict_from_jax)
+
+    return AFSLoss(arcface_state_dict_from_jax(smoke.arcface_jax_variables()),
+                   lpips_state_dict_from_jax(smoke.lpips_jax_variables())
+                   ).to(device)
+
+
+def test_afs_generator_card_matches_cpu(smoke):
+    """A 64 px generator (512 channels up to 32 px, 512 at 64) on 3 w+:
+    the card in f32 and bf16 against the CPU in f32; no kernel."""
+    w = torch.randn(3, 10, 512, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = _afs_generator(smoke, 64, "cpu", torch.float32)([w])[0]
+        _afs_reset()
+        f32 = _afs_generator(smoke, 64, "cuda", torch.float32)([w.cuda()])[0]
+        bf16 = _afs_generator(smoke, 64, "cuda", None)([w.cuda()])[0]
+    assert bf16.dtype == torch.bfloat16
+    assert _rel(f32, ref) <= AFS_F32_RTOL
+    assert _rel(bf16, ref) <= AFS_BF16_RTOL
+    assert set(_afs_counts().values()) == {0}
+
+
+def test_afs_arcface_and_lpips_card_match_cpu(smoke):
+    """IR-SE50 ArcFace and LPIPS-alex (seeded) on 2 images of 256 px."""
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(1)
+                   ) * 2 - 1
+    y = x.flip(0)
+    cpu, card = _afs_loss(smoke, "cpu"), _afs_loss(smoke, "cuda")
+    with torch.no_grad():
+        _afs_reset()
+        emb, dist = card.arcface(x.cuda()), card.lpips(x.cuda(), y.cuda())
+        counts = _afs_counts()
+        assert _rel(emb, cpu.arcface(x)) <= AFS_F32_RTOL
+        assert _rel(dist, cpu.lpips(x, y)) <= AFS_F32_RTOL
+    assert set(counts.values()) == {0}
+
+
+def test_style_extractor_card_matches_cpu(smoke):
+    """h at full width on 8 w+: the train-mode output and running
+    statistics, then the eval-mode output."""
+    from fer_vit_tpu_torch.afs import StyleExtractor
+
+    w = torch.randn(8, 18, 512, generator=torch.Generator().manual_seed(2))
+    cpu = StyleExtractor(generator=torch.Generator().manual_seed(3))
+    card = StyleExtractor()
+    card.load_state_dict(cpu.state_dict())
+    card.cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for training in (True, False):
+        ref = cpu.train(training)(w)
+        got = card.train(training)(w.cuda())
+        assert _rel(got, ref) <= AFS_H_RTOL, training
+    for k, v in cpu.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            assert _rel(card.state_dict()[k], v) <= AFS_H_RTOL, k
+
+
+def test_afs_train_step_card_matches_cpu(smoke):
+    """One provider-A step (a 32 px generator, IR-SE50, LPIPS, batch 4)
+    from the same state: the card in f32 against the CPU in f32 on the
+    loss and its parts and on h's gradients; no kernel launched."""
+    from fer_vit_tpu_torch.afs import StyleExtractor
+    from fer_vit_tpu_torch.afs.train_style_extractor import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w = torch.randn(8, 8, 512, generator=torch.Generator().manual_seed(4))
+    out = {}
+    for device in ("cpu", "cuda"):
+        h = StyleExtractor(n_layers=8,
+                           generator=torch.Generator().manual_seed(5)
+                           ).to(device)
+        opt = torch.optim.Adam(h.parameters(), lr=1e-4)
+        step, _ = make_train_step(
+            h, _afs_generator(smoke, 32, device, torch.float32),
+            _afs_loss(smoke, device), opt, use_provider_a=True)
+        _afs_reset()
+        loss, m = step(1e-4, w[:4].to(device), w[4:].to(device))
+        out[device] = ({"loss": loss, **m},
+                       torch.cat([p.grad.reshape(-1).cpu()
+                                  for p in h.parameters()]))
+        if device == "cuda":
+            assert set(_afs_counts().values()) == {0}
+    (ref, g_ref), (got, g_got) = out["cpu"], out["cuda"]
+    for k in ref:
+        assert abs(float(got[k]) - float(ref[k])) <= \
+            AFS_STEP_LOSS_RTOL * abs(float(ref[k])), k
+    assert float((g_got - g_ref).norm() / g_ref.norm()) <= AFS_STEP_GRAD_RTOL

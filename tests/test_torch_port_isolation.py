@@ -52,7 +52,12 @@ def test_every_module_imports_with_jax_blocked():
               "eval.visualize_leam_weights", "eval.plot_logs",
               "eval.plot_data_fraction", "analysis",
               "analysis.expression_directions", "analysis.sefa",
-              "data.augment_latents", "data.analyze"):
+              "data.augment_latents", "data.analyze",
+              "encoders.stylegan2", "encoders.convert_stylegan2",
+              "encoders.arcface", "encoders.lpips", "afs",
+              "afs.style_extractor", "afs.losses", "afs.pair_sampling",
+              "afs.image_provider", "afs.train_style_extractor",
+              "train.train_style_extractor"):
         assert f"fer_vit_tpu_torch.{m}" in mods
     code = (
         "import sys\n"
@@ -250,3 +255,49 @@ def test_chip_smoke_png_writer_round_trips_through_pil(tmp_path):
     shapes = {(h, cin, cout, s) for h, cin, cout, s, _ in
               smoke.IRSE50_UNIT_SHAPES}
     assert set(smoke.K1_PRODUCTION_CASES) <= shapes
+
+
+def test_chip_smoke_afs_trees_have_the_jax_layout():
+    """Phase 10's seeded generator, ArcFace and LPIPS trees have the JAX
+    modules' layout (the generator with its mapping), so they reach the
+    port through the same bridges as the parity tests."""
+    from fer_vit_tpu.encoders.arcface import ArcFaceExtractor
+    from fer_vit_tpu.encoders.lpips import LPIPS
+    from fer_vit_tpu.encoders.stylegan2 import Generator
+    from tests.torch_port_common import TINY_PLAN
+
+    smoke = _chip_smoke()
+    gen = Generator(size=16)
+    want = jax.eval_shape(
+        lambda z: gen.init(jax.random.key(0), [z], input_is_latent=False),
+        jnp.zeros((1, 512)))
+    assert _shapes(smoke.stylegan2_jax_variables(size=16)) == _shapes(want)
+    arc = ArcFaceExtractor(plan=TINY_PLAN)
+    want = jax.eval_shape(arc.init, jax.random.key(0),
+                          jnp.zeros((1, 256, 256, 3)))
+    assert _shapes(smoke.arcface_jax_variables(plan=TINY_PLAN)) == \
+        _shapes(want)
+    want = jax.eval_shape(LPIPS().init, jax.random.key(0),
+                          jnp.zeros((1, 64, 64, 3)), jnp.zeros((1, 64, 64, 3)))
+    assert _shapes(smoke.lpips_jax_variables()) == _shapes(want)
+
+
+def test_chip_smoke_psp_tree_unchanged_by_the_shared_trunk():
+    """The pSp tree draws its IR-SE trunk through ``irse_jax_trunk``, the
+    same draws in the same order as the ArcFace tree's trunk with the same
+    seed; phases 3-9 read the same weights as before."""
+    from tests.torch_port_common import TINY_PLAN
+
+    smoke = _chip_smoke()
+    psp = smoke.psp_jax_variables(plan=TINY_PLAN, input_size=32,
+                                  style_dim=16, seed=5)
+    import numpy as np
+
+    bb, bbs = smoke.irse_jax_trunk(np.random.default_rng(5), TINY_PLAN)
+    flat = jax.tree_util.tree_leaves_with_path
+    for (pa, a), (pb, b) in zip(flat(psp["params"]["backbone"]), flat(bb)):
+        assert pa == pb
+        np.testing.assert_array_equal(a, b)
+    for (_, a), (_, b) in zip(flat(psp["batch_stats"]["backbone"]),
+                              flat(bbs)):
+        np.testing.assert_array_equal(a, b)
