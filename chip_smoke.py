@@ -125,6 +125,23 @@ Phases, in order; any failure exits non-zero before the result line:
    3 steps at 256 px, batch 4, in lockstep: the card in f32 against the
    CPU in f32 (loss and its parts, gradients, running statistics,
    parameters) and the generator in bf16 (the loss).
+11. serving and scale-out, on phase 7's seeded checkpoints and pSp (their
+   answers depend on the input), bf16: ``make_server`` on each route
+   (device batches of 64): 32 client threads x 8 PNG faces to ``POST
+   /predict``, every answer equal to ``Predictor.predict`` on the decoded
+   image, 24 ``fused_irse_unit_sm90`` (latent) or 12
+   ``flash_attention_sm90`` (image) launches per device batch of the
+   batcher, requests/s and p50/p99 latency; ``POST /predict_batch`` with
+   256 images (two bodies of 128), images/s; a burst against
+   ``max_queue=2`` shed with 429 and ``Retry-After``; ``/healthz`` naming
+   the card. Both routes exported with both input dtypes
+   (``fer_vit_tpu_torch.export``; export seconds, bytes) and reloaded in a
+   fresh process that imports no model module: answers equal to the live
+   predictor's, 24 K1 or 12 K2 launches per exported batch, images/s
+   against the live predictor's. A ``--dp_devices -1`` mesh over every
+   card equal to one device. ``train_latent_vit`` for 3 steps without a
+   process group and under a one-rank ``nccl`` group (the data-parallel
+   path with its collectives): the same parameters and logged losses.
 
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
@@ -140,7 +157,8 @@ Each phase's wall seconds are logged as it ends. Before the kernels line,
 a JSON line gives the launches per kernel on each main path (the two
 serving slices, production, latent training, image training, checkpoint
 serving, each zoo run and the zoo's serving, latent eval, image eval,
-export, analysis, the single-image predictor and the AFS paths), phase
+export, analysis, the single-image predictor, the AFS paths, and phase 11's
+HTTP, bulk, exported, mesh and training paths), phase
 5's batches and images, the zoo runs' steps/s, phase 9's rates and
 seconds, phase 10's readings, and the phase seconds. The line
 before the last is a JSON object listing the four kernels
@@ -970,12 +988,14 @@ def main() -> int:
                       root, prod["training"]["best_model"],
                       image["best_model"], zoo["checkpoints"])
         afs = timed("10 AFS", phase_afs, torch, dev_info, root)
+        scaleout = timed("11 serving and scale-out", phase_scaleout, torch,
+                         dev_info, root)
     paths.update({"production": prod["production"]["launches"],
                   "latent training": prod["training"]["launches"],
                   "image training": image["launches"],
                   "checkpoint serving": serving["launches"],
                   **zoo["launches"], **evals["launches"],
-                  **afs["launches"]})
+                  **afs["launches"], **scaleout["launches"]})
     launches = {name: sum(p[name] for p in paths.values())
                 for name in KERNEL_META}
     print(json.dumps({"launches_by_path": paths,
@@ -988,6 +1008,8 @@ def main() -> int:
                                if k != "launches"},
                       "afs": {k: v for k, v in afs.items()
                               if k != "launches"},
+                      "scaleout": {k: v for k, v in scaleout.items()
+                                   if k != "launches"},
                       "phase_seconds": seconds}))
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
@@ -4001,6 +4023,443 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
           and worst["bf16_loss"] <= AFS_LOCK_BF16_RTOL,
           "afs lockstep: the card disagrees with the CPU")
     return out
+
+
+# -- phase 11: serving and scale-out ---------------------------------------------
+
+# The HTTP server on each route (phase 7's seeded checkpoints, whose answers
+# depend on the input; the latent route over phase 7's seeded pSp): 32
+# client threads x 8 POSTs of the 112 val PNGs, device batches of 64.
+# /predict_batch takes 256 images as two .npy bodies of 128 (one of 256 at
+# 256 px, 50 MB, is over MAX_REQUEST_BYTES); a burst of 16 against
+# max_queue=2 and max_batch=1. Export: both routes, both input dtypes,
+# reloaded in a fresh process. Where the batches are the same (the
+# exported programs against the live predictor, /predict_batch against
+# Predictor.predict on the same bodies) the answers must be equal bit for
+# bit: a row's result does not depend on the other rows, and every device
+# call has the same padded shape. /predict's answers come from batches the
+# batcher made, in which an image may sit at another row than in the
+# reference batch; a row's position can change the summation order of a
+# product (read on the CPU: 3e-8 in the probabilities), so they are held
+# to the route's bf16 limits against the CPU (phases 3 and 4: probabilities,
+# and labels wherever the top two are more than the margin apart), and the
+# share that is bit for bit equal is logged.
+HTTP_CLIENTS = 32
+HTTP_PER_CLIENT = 8
+HTTP_BATCH = 64
+BULK_IMAGES = 256
+BULK_CHUNK = 128
+BURST = 16
+EXPORT_IMAGES = 128
+# train_latent_vit, 3 steps at batch 64 (the first 192 of phase 5's train
+# w+), without a process group and under a one-rank nccl group, which runs
+# the data-parallel path (its collectives are the identity): every
+# parameter within 2.05 lr, all but 1e-3 of them within 1e-5 (AdamW's first
+# steps move each element by about lr * sign(g), so a rounding flip of a
+# gradient at the noise floor moves it by up to 2 lr), and the logged
+# losses within bf16's 2e-2 (DET_BF16_LOSS_RTOL); bit for bit is expected,
+# and logged.
+DP_STEPS = 3
+DP_LR = 1e-4
+
+_EXPORT_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from fer_vit_tpu_torch.ops import flash_attention, fused_irse_unit
+from fer_vit_tpu_torch.serve import Predictor
+
+out = {}
+for route, art, images in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    pred = Predictor.from_exported(art)
+    pred.warmup()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = np.load(images)
+    res = {"load_s": load_s}
+    for dtype, batch in (("uint8", x), ("float32", x.astype(np.float32))):
+        fused_irse_unit.reset_launch_counts()
+        flash_attention.reset_launch_counts()
+        labels, probs = pred.predict(batch)
+        torch.cuda.synchronize()
+        counts = {**fused_irse_unit.fused_irse_residual.kernel_launches,
+                  **flash_attention.fused_attention.kernel_launches}
+        t0 = time.perf_counter()
+        pred.predict(batch)
+        torch.cuda.synchronize()
+        np.save(f"{images[:-4]}_{dtype}_probs.npy", probs)
+        np.save(f"{images[:-4]}_{dtype}_labels.npy", labels)
+        res[dtype] = {"launches": counts,
+                      "images_per_s": len(x) / (time.perf_counter() - t0)}
+    out[route] = res
+bad = [m for m in sys.modules if m.startswith(
+    ("fer_vit_tpu_torch.models", "fer_vit_tpu_torch.encoders"))]
+print(json.dumps({"routes": out, "model_modules": bad}))
+"""
+
+
+def http_request(url: str, data=None, timeout: float = 120):
+    """(status, JSON body, Retry-After) of one request."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), None
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), e.headers.get(
+            "Retry-After")
+
+
+def run_threads(fns, timeout: float = 300) -> None:
+    import threading
+
+    threads = [threading.Thread(target=f) for f in fns]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+    check(not any(t.is_alive() for t in threads), "a client thread hung")
+
+
+@contextlib.contextmanager
+def http_server(pred, **kw):
+    import threading
+
+    from fer_vit_tpu_torch.serve import make_server
+
+    srv = make_server(pred, host="127.0.0.1", port=0, **kw)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield srv, f"http://127.0.0.1:{srv.server_port}"
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.server_close()
+        thread.join(timeout=10)
+
+
+def http_route(torch, dev_info, route: str, pred, bodies, per_batch,
+               prob_tol: float, margin: float) -> dict:
+    """The HTTP checks of one route; the launches of its /predict and
+    /predict_batch paths and their rates."""
+    import io
+
+    from fer_vit_tpu_torch.serve import _decode_request_image
+
+    size = pred.input_size
+    decoded = np.stack([_decode_request_image(b, size) for b in bodies])
+    ref_labels, ref_probs = pred.predict(decoded)
+    out = {"launches": {}}
+    with http_server(pred, max_batch=HTTP_BATCH, max_wait_ms=5.0) as (srv,
+                                                                      url):
+        code, health, _ = http_request(url + "/healthz")
+        check(code == 200 and health["platform"] == "cuda"
+              and health["device_name"] == torch.cuda.get_device_name(0)
+              and health["model"]["route"] == route,
+              f"{route} /healthz: {health}")
+        answers, latencies = {}, []
+
+        def client(c):
+            for j in range(HTTP_PER_CLIENT):
+                i = (c * HTTP_PER_CLIENT + j) % len(bodies)
+                t0 = time.perf_counter()
+                answers[(c, j)] = (i, http_request(url + "/predict",
+                                                   bodies[i]))
+                latencies.append(time.perf_counter() - t0)
+
+        reset_kernel_counts()
+        batches0 = srv.batcher.device_batches
+        t0 = time.perf_counter()
+        run_threads([functools.partial(client, c)
+                     for c in range(HTTP_CLIENTS)])
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        n_batches = srv.batcher.device_batches - batches0
+        n = HTTP_CLIENTS * HTTP_PER_CLIENT
+        want = {k: per_batch.get(k, 0) * n_batches for k in KERNEL_META}
+        top2 = np.sort(ref_probs, axis=1)[:, -2:]
+        clear = top2[:, 1] - top2[:, 0] > margin
+        bad, exact, dmax = [], 0, 0.0
+        for i, (code, body, _) in answers.values():
+            if code != 200:
+                bad.append((i, code))
+                continue
+            got = np.float32(body["probs"])
+            d = float(np.abs(got - ref_probs[i]).max())
+            dmax, exact = max(dmax, d), exact + int(d == 0.0)
+            if d > prob_tol or (clear[i]
+                                and body["label"] != int(ref_labels[i])):
+                bad.append((i, d))
+        p50, p99 = np.percentile(latencies, [50, 99]) * 1e3
+        log(f"http {route} route on {dev_info['card']}: {n} POST /predict "
+            f"from {HTTP_CLIENTS} clients in {wall:.3f} s, "
+            f"{n / wall:.2f} requests/s, latency p50 {p50:.1f} ms p99 "
+            f"{p99:.1f} ms, {n_batches} device batches (mean "
+            f"{n / max(n_batches, 1):.1f} requests), launches {counts}; "
+            f"against Predictor.predict on the decoded images: {exact} of "
+            f"{n} bit for bit, max |dprob| {dmax:.3e} (tol {prob_tol})")
+        check(len(answers) == n and not bad,
+              f"{route} /predict answers differ from Predictor.predict: "
+              f"{bad[:5]}")
+        check(counts == want, f"{route} /predict launches {counts}, "
+              f"expected {want}")
+        out["launches"][f"http {route}"] = counts
+        out["requests_per_s"], out["p50_ms"], out["p99_ms"] = (
+            n / wall, float(p50), float(p99))
+
+        idx = np.arange(BULK_IMAGES) % len(decoded)
+        ref_bulk = [pred.predict(decoded[idx[k:k + BULK_CHUNK]])
+                    for k in range(0, BULK_IMAGES, BULK_CHUNK)]
+        ref_l = np.concatenate([r[0] for r in ref_bulk])
+        ref_p = np.concatenate([r[1] for r in ref_bulk])
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        rows = []
+        for k in range(0, BULK_IMAGES, BULK_CHUNK):
+            buf = io.BytesIO()
+            np.save(buf, decoded[idx[k:k + BULK_CHUNK]])
+            code, body, _ = http_request(url + "/predict_batch",
+                                         buf.getvalue())
+            check(code == 200, f"{route} /predict_batch: {code} {body}")
+            rows += body["predictions"]
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        n_calls = BULK_IMAGES // BULK_CHUNK * -(-BULK_CHUNK // HTTP_BATCH)
+        want = {k: per_batch.get(k, 0) * n_calls for k in KERNEL_META}
+        same = all(r["label"] == int(ref_l[j])
+                   and np.array_equal(np.float32(r["probs"]), ref_p[j])
+                   for j, r in enumerate(rows))
+        log(f"http {route} route on {dev_info['card']}: POST /predict_batch "
+            f"{BULK_IMAGES} images ({BULK_IMAGES // BULK_CHUNK} bodies of "
+            f"{BULK_CHUNK}) in {wall:.3f} s, {BULK_IMAGES / wall:.2f} "
+            f"images/s, launches {counts}, equal to Predictor.predict: "
+            f"{same}")
+        check(len(rows) == BULK_IMAGES and same,
+              f"{route} /predict_batch differs from Predictor.predict")
+        check(counts == want, f"{route} /predict_batch launches {counts}, "
+              f"expected {want}")
+        out["launches"][f"predict_batch {route}"] = counts
+        out["bulk_images_per_s"] = BULK_IMAGES / wall
+
+    with http_server(pred, max_batch=1, max_wait_ms=0.0,
+                     max_queue=2) as (srv, url):
+        codes = []
+        run_threads([lambda: codes.append(http_request(
+            url + "/predict", bodies[0])) for _ in range(BURST)])
+    got = [c for c, _, _ in codes]
+    log(f"http {route} route: a burst of {BURST} against max_queue=2: "
+        f"{got.count(200)} answered, {got.count(429)} shed with 429")
+    check(len(got) == BURST and set(got) <= {200, 429}
+          and got.count(429) >= 1 and got.count(200) >= 1
+          and all(r == "1" for c, _, r in codes if c == 429),
+          f"{route} burst: codes {got}")
+    return out
+
+
+def phase_scaleout(torch, dev_info, root: Path) -> dict:
+    """Phase 7's seeded checkpoints and pSp (both routes' answers depend on
+    the input) behind the HTTP server, exported and reloaded in a fresh
+    process, and behind a mesh over every card; then train_latent_vit under
+    a one-rank nccl group."""
+    from fer_vit_tpu_torch.core import distributed
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
+    from fer_vit_tpu_torch.export import export_predictor
+    from fer_vit_tpu_torch.interop.from_jax import (load_npz_variables,
+                                                    psp_state_dict_from_jax)
+    from fer_vit_tpu_torch.serve import (Predictor, _collect_inputs,
+                                         _decode_request_image,
+                                         _mesh_from_flag)
+
+    paths = _collect_inputs([str(root / "val")])
+    bodies = [Path(p).read_bytes() for p in paths]
+    psp = EncoderWrapper(psp_state_dict_from_jax(
+        load_npz_variables(str(root / "psp_seeded.npz"))))
+    routes = (("latent", {K1_SM90: 24}, BF16_PROB_TOL, BF16_MARGIN),
+              ("image", {"flash_attention_sm90": 12}, IMAGE_BF16_PROB_TOL,
+               IMAGE_BF16_MARGIN))
+    out = {"launches": {}}
+    preds, arts, live = {}, [], {}
+    for route, per_batch, prob_tol, margin in routes:
+        pred = Predictor.from_checkpoint(
+            str(root / f"seeded_{route}.pt"),
+            psp=psp if route == "latent" else None, batch_size=HTTP_BATCH)
+        pred.warmup()
+        preds[route] = pred
+        r = http_route(torch, dev_info, route, pred, bodies, per_batch,
+                       prob_tol, margin)
+        out["launches"].update(r.pop("launches"))
+        out[f"http {route}"] = {k: round(v, 2) for k, v in r.items()}
+
+        # export, then the live predictor's answers and rate on the inputs
+        # the fresh process gets
+        art = root / f"artifact_{route}"
+        t0 = time.perf_counter()
+        meta = export_predictor(pred, str(art))
+        export_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in art.iterdir())
+        x = np.stack([_decode_request_image(bodies[i % len(bodies)],
+                                            pred.input_size)
+                      for i in range(EXPORT_IMAGES)])
+        np.save(root / f"export_in_{route}.npy", x)
+        rates = []
+        for dtype, batch in (("uint8", x), ("float32",
+                                            x.astype(np.float32))):
+            live[(route, dtype)] = pred.predict(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict(batch)
+            torch.cuda.synchronize()
+            rates.append(EXPORT_IMAGES / (time.perf_counter() - t0))
+        log(f"export {route} route: {meta['input_dtypes']} programs at "
+            f"batch {meta['batch_size']} in {export_s:.1f} s, "
+            f"{nbytes / 2**20:.1f} MiB ({', '.join(f'{f.name} {f.stat().st_size / 2**20:.1f} MiB' for f in sorted(art.iterdir()))}); "
+            f"live images/s uint8 {rates[0]:.2f}, float32 {rates[1]:.2f}")
+        out[f"export {route}"] = {"export_s": round(export_s, 1),
+                                  "bytes": nbytes,
+                                  "live_images_per_s": [round(v, 2)
+                                                        for v in rates]}
+        arts.append((route, str(art), str(root / f"export_in_{route}.npy")))
+
+    # the artifacts in a fresh process that imports no model code
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _EXPORT_WORKER,
+                           json.dumps(arts)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"exported programs failed in a fresh process: "
+          f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"export: the fresh process took {time.perf_counter() - t0:.1f} s "
+        f"(start, loads, warm-up, 4 runs); model modules imported: "
+        f"{res['model_modules']}")
+    check(res["model_modules"] == [], "the exported programs' process "
+          f"imported model code: {res['model_modules']}")
+    n_batches = -(-EXPORT_IMAGES // HTTP_BATCH)
+    for route, per_batch, _, _ in routes:
+        r = res["routes"][route]
+        total = dict.fromkeys(KERNEL_META, 0)
+        for dtype in ("uint8", "float32"):
+            stem = root / f"export_in_{route}_{dtype}"
+            labels = np.load(f"{stem}_labels.npy")
+            probs = np.load(f"{stem}_probs.npy")
+            l_live, p_live = live[(route, dtype)]
+            counts = r[dtype]["launches"]
+            want = {k: per_batch.get(k, 0) * n_batches for k in KERNEL_META}
+            dp = float(np.abs(probs - p_live).max())
+            live_rate = out[f"export {route}"]["live_images_per_s"][
+                0 if dtype == "uint8" else 1]
+            log(f"export {route} route, {dtype} program in a fresh process: "
+                f"loaded and warm in {r['load_s']:.1f} s; "
+                f"{r[dtype]['images_per_s']:.2f} images/s against the live "
+                f"predictor's {live_rate:.2f} (ratio "
+                f"{r[dtype]['images_per_s'] / live_rate:.3f}); labels equal "
+                f"{bool(np.array_equal(labels, l_live))}, max |dprob| "
+                f"{dp:.3e}; launches {counts} for {n_batches} batches")
+            check(np.array_equal(labels, l_live)
+                  and np.array_equal(probs, p_live),
+                  f"export {route} {dtype}: the exported program differs "
+                  f"from the live predictor (max |dprob| {dp:.3e})")
+            check(counts == want, f"export {route} {dtype}: launches "
+                  f"{counts}, expected {want}")
+            for k in total:
+                total[k] += counts[k]
+            out[f"export {route}"][f"{dtype}_images_per_s"] = round(
+                r[dtype]["images_per_s"], 2)
+        out["launches"][f"exported {route}"] = total
+
+    # --dp_devices -1: a mesh over every card against one device
+    mesh = _mesh_from_flag(-1)
+    single = preds["latent"]
+    dp_pred = Predictor.from_checkpoint(str(root / "seeded_latent.pt"),
+                                        psp=psp, batch_size=HTTP_BATCH,
+                                        mesh=mesh)
+    x = np.load(root / "export_in_latent.npy")
+    want_l, want_p = single.predict(x)
+    reset_kernel_counts()
+    got_l, got_p = dp_pred.predict(x)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    log(f"mesh: --dp_devices -1 over {mesh.shape} ({len(mesh.data_devices)}"
+        f" card(s)), describe {dp_pred.describe()['mesh']}: equal to one "
+        f"device {bool(np.array_equal(got_p, want_p))}, launches {counts}")
+    check(np.array_equal(got_l, want_l) and np.array_equal(got_p, want_p),
+          "the mesh predictor differs from the single-device one")
+    # each shard of each padded batch runs the whole encoder
+    want = {k: 0 for k in KERNEL_META}
+    want[K1_SM90] = 24 * len(mesh.data_devices) * n_batches
+    check(counts == want, f"mesh launches {counts}, expected {want}")
+    out["launches"]["mesh latent"] = counts
+    del dp_pred, preds, single
+
+    # train_latent_vit: 3 steps without a group, then under a one-rank
+    # nccl group (the data-parallel path, collectives included)
+    from fer_vit_tpu_torch.train import train_latent_vit
+
+    with np.load(root / "latents_train" / "latents_pack_0000.npz") as z:
+        n = DP_STEPS * HTTP_BATCH
+        (root / "dp_train").mkdir()
+        np.savez(root / "dp_train" / "latents_pack.npz",
+                 latents=z["latents"][:n], labels=z["labels"][:n])
+    runs = {}
+    for name in ("no group", "nccl group"):
+        if name == "nccl group":
+            distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0)
+            check(distributed.data_parallel()
+                  and torch.distributed.get_backend() == "nccl",
+                  "no nccl group")
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        res = train_latent_vit.main(train_latent_vit.build_parser().parse_args(
+            ["--latent_train_dir", str(root / "dp_train"),
+             "--latent_val_dir", str(root / "latents_val"), "--epochs", "1",
+             "--batch_size", str(HTTP_BATCH), "--lr", str(DP_LR),
+             "--dropout", "0", "--experiments_dir",
+             str(root / f"dp_{name.replace(' ', '_')}")]))
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        if name == "nccl group":
+            torch.distributed.destroy_process_group()
+        run = Path(res["experiment_path"])
+        ckpt = torch.load(run / "checkpoints" / "last_model.pt",
+                          map_location="cpu", weights_only=False)
+        with open(run / "logs" / "scalars.jsonl") as f:
+            scalars = {(r["tag"], r["step"]): r["value"]
+                       for r in map(json.loads, f)}
+        runs[name] = (ckpt["state"]["model"], scalars)
+        log(f"dp training, {name}: {DP_STEPS} steps in "
+            f"{time.perf_counter() - t0:.1f} s (with evaluation and "
+            f"checkpoint writes), launches {counts}")
+        out["launches"][f"train {name}"] = counts
+    (a, sa), (b, sb) = runs["no group"], runs["nccl group"]
+    d = {k: float((a[k].float() - b[k].float()).abs().max()) for k in a}
+    loose = sum(int(((a[k].float() - b[k].float()).abs() > 1e-5).sum())
+                for k in a)
+    total = sum(a[k].numel() for k in a)
+    dl = max(abs(sb[k] / sa[k] - 1) for k in sa if sa[k])
+    ident = all(torch.equal(a[k], b[k]) for k in a) and sa == sb
+    log(f"dp training: the one-rank nccl group against no group: "
+        f"parameters max |d| {max(d.values()):.3e} (tol {2.05 * DP_LR:.2e}),"
+        f" {loose} of {total} above 1e-5; logged scalars max relative "
+        f"{dl:.3e} (tol {DET_BF16_LOSS_RTOL}); bit for bit {ident}")
+    check(sa.keys() == sb.keys() and max(d.values()) <= 2.05 * DP_LR
+          and loose <= 1e-3 * total and dl <= DET_BF16_LOSS_RTOL,
+          "train_latent_vit under a one-rank nccl group parts from the run "
+          "without a group")
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ JAX counterpart on the same weights and inputs.
 
 Package map:
 
-* :mod:`fer_vit_tpu_torch.core`     — dtype and device policy
+* :mod:`fer_vit_tpu_torch.core`     — dtype and device policy, the device
+  mesh, process groups
 * :mod:`fer_vit_tpu_torch.ops`      — hand-written CUDA kernels (fused IR-SE
   unit, fused attention) with their plain versions
 * :mod:`fer_vit_tpu_torch.nn`       — transformer layers and initializers
@@ -30,14 +31,19 @@ Package map:
   and its trainers' msgpack checkpoints; reference-format torch
   checkpoints in and out
 * :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent and image routes,
-  from a checkpoint, over files and packs) and the predict CLI
+  from a checkpoint or an exported artifact, over files and packs, on one
+  device or a mesh), the predict CLI and the HTTP server
+* :mod:`fer_vit_tpu_torch.export`   — AOT export of a predictor
+* :mod:`fer_vit_tpu_torch.parallel` — the Megatron split over a process group
+* :mod:`fer_vit_tpu_torch.cli`      — the JAX package's console entry points
 
 Command-line entry points (CUDA; ``main(args, device="cpu")`` from Python
 for the CPU): ``python -m fer_vit_tpu_torch.data.generate_latents``,
 ``python -m fer_vit_tpu_torch.train.train_latent_vit``, ``python -m
 fer_vit_tpu_torch.train.train_image_vit``, ``python -m
 fer_vit_tpu_torch.data.image_packs``, ``python -m
-fer_vit_tpu_torch.serve`` (the predict CLI), ``python -m
+fer_vit_tpu_torch.serve`` (the predict CLI; ``serve`` for the HTTP
+server), ``python -m fer_vit_tpu_torch.export``, ``python -m
 fer_vit_tpu_torch.eval.evaluate_model``, ``python -m
 fer_vit_tpu_torch.eval.evaluate_image_vit`` and ``python -m
 fer_vit_tpu_torch.analysis.expression_directions`` (``--device cpu`` for

@@ -27,6 +27,13 @@ and takes its moments in its own way. As the JAX module:
 Features are on axis 1 (torch's layout: (B, C) or (B, C, L) or (B, C, H,
 W)). In training mode every forward, with or without autograd, updates the
 running statistics; in eval mode the forward normalises with them.
+
+With data parallelism (a process group is up, each process holding a
+slice of the global batch) the masked sums and the row count are
+summed over the group before the moments are taken, so the batch
+statistics are the global batch's, as under JAX's sharded jit (plain
+``DistributedDataParallel`` would keep them per rank); the sums' gradients
+are summed over the group in the backward.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from fer_vit_tpu_torch.core import distributed
 
 
 class MaskedBatchNorm(nn.Module):
@@ -59,7 +68,17 @@ class MaskedBatchNorm(nn.Module):
             red = [0] + list(range(2, x.dim()))
             xf = x.float()
             spatial = xf[0, 0].numel()
-            if mask is None:
+            if distributed.data_parallel():
+                w = (xf.new_ones((x.shape[0],) + (1,) * (x.dim() - 1))
+                     if mask is None else
+                     mask.float().view((-1,) + (1,) * (x.dim() - 1)))
+                sums = distributed.all_reduce_sum(torch.stack(
+                    [(xf * w).sum(dim=red), (xf * xf * w).sum(dim=red)]))
+                n = distributed.all_reduce_sum_(
+                    w.sum().detach() * spatial).clamp_min(1.0)
+                unbias = n / (n - 1.0).clamp_min(1.0)
+                mean, mean2 = sums[0] / n, sums[1] / n
+            elif mask is None:
                 n = float(x.shape[0] * spatial)
                 unbias = n / max(n - 1.0, 1.0)
                 mean = xf.mean(dim=red)

@@ -17,16 +17,23 @@ shape and strides alone, before the launch:
   above 64 (up to 128) or not a multiple of 16, or views TMA cannot read.
 
 Each kernel raises on what it does not take; there is no other route: a
-CUDA call that cannot launch raises.
+CUDA call that cannot launch raises. :func:`fused_attention` calls the
+custom op ``fer_vit_tpu_torch::fused_attention``
+(``torch.library.custom_op``): its CPU implementation is the plain version,
+its CUDA one runs :func:`route` and the kernel when it is called, its fake
+gives the output's shape, dtype and strides, and its backward recomputes
+through the plain version. A tracer (``torch.export``) keeps it as one
+opaque node, so an exported program picks its kernel at run time.
 
 Rounding points (those of the TPU kernel), for T = q.dtype: scores in f32
 from operands in T, f32 max and sum, the weights divided by the sum and
 rounded to T, the product with V accumulated in f32 and stored in T.
 
 The kernels read q, k and v through their strides, so the head-split views
-of a packed qkv projection need no copy; only Dh must be contiguous. On CUDA
-the result is a (B, H, L, Dh) view of a (B, L, H, Dh) tensor, so merging the
-heads back (``out.transpose(1, 2).reshape(B, L, H * Dh)``) is free.
+of a packed qkv projection need no copy; only Dh must be contiguous. The
+result is a (B, H, L, Dh) tensor laid out as (B, L, H, Dh), on every
+device, so merging the heads back (``out.transpose(1, 2).reshape(B, L, H *
+Dh)``) is free.
 """
 
 from __future__ import annotations
@@ -110,12 +117,20 @@ def _declare_sm90(lib: ctypes.CDLL) -> None:
     lib.fused_attention_sm90_error_string.restype = ctypes.c_char_p
 
 
-def _output_and_strides(q, k, v):
-    """The (B, H, L, Dh) view of a new (B, L, H, Dh) output, and the 12
-    (batch, head, row) strides of q, k, v and out for the C interface."""
+def _new_output(q: torch.Tensor) -> torch.Tensor:
+    """A new (B, H, L, Dh) tensor laid out as (B, L, H, Dh): what the
+    kernels write, the plain version's result is copied into and the fake
+    implementation describes, so every implementation of the op returns
+    the same strides."""
     B, H, L, dh = q.shape
-    out = torch.empty((B, L, H, dh), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    return torch.empty_strided((B, H, L, dh), (L * H * dh, dh, H * dh, 1),
+                               dtype=q.dtype, device=q.device)
+
+
+def _output_and_strides(q, k, v):
+    """A new output (:func:`_new_output`) and the 12 (batch, head, row)
+    strides of q, k, v and out for the C interface."""
+    out = _new_output(q)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     return out, strides
@@ -192,25 +207,43 @@ def reset_launch_counts() -> None:
     fused_attention.kernel_launches = dict.fromkeys(KERNELS, 0)
 
 
-class _FusedAttention(torch.autograd.Function):
-    """Forward through the kernel (or, for CPU tensors, the plain version);
-    backward recomputes through the plain version, as the TPU kernel's
+@torch.library.custom_op("fer_vit_tpu_torch::fused_attention",
+                         mutates_args=())
+def _fused_attention_op(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The opaque op that tracers (``torch.export``) keep as one node. Its
+    CPU implementation is the plain version; the CUDA one below picks the
+    kernel with :func:`route` when it runs, so an exported program reads
+    the strides and alignment of the tensors it is given, not of those it
+    was traced with."""
+    return _new_output(q).copy_(fused_attention_plain(q, k, v))
+
+
+@_fused_attention_op.register_kernel("cuda")
+def _fused_attention_cuda(q, k, v):
+    return KERNELS[route(q, k, v)](q, k, v)
+
+
+@_fused_attention_op.register_fake
+def _fused_attention_fake(q, k, v):
+    return _new_output(q)
+
+
+def _fused_attention_setup(ctx, inputs, output) -> None:
+    ctx.save_for_backward(*inputs)
+
+
+def _fused_attention_backward(ctx, g):
+    """Recomputes through the plain version, as the TPU kernel's
     ``custom_vjp`` recomputes through ``dot_product_attention``."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        out = fused_attention_plain(*inputs)
+        return torch.autograd.grad(out, inputs, g)
 
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return fused_attention_plain(q, k, v)
-        return KERNELS[route(q, k, v)](q, k, v)
 
-    @staticmethod
-    def backward(ctx, g):
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(True)
-                      for t in ctx.saved_tensors]
-            out = fused_attention_plain(*inputs)
-            return torch.autograd.grad(out, inputs, g)
+_fused_attention_op.register_autograd(_fused_attention_backward,
+                                      setup_context=_fused_attention_setup)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor,
@@ -221,7 +254,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor,
     128, Dh contiguous; :func:`route` picks the kernel. Differentiable; the
     backward recomputes through the plain version."""
     _check(q, k, v)
-    return _FusedAttention.apply(q, k, v)
+    return _fused_attention_op(q, k, v)
 
 
 # Kernel launches on CUDA tensors since the counts were last set to 0: the

@@ -24,7 +24,14 @@ picks it from dtype, shape and layout alone, before the launch:
   memory (plus the sums' reduction); tiles by :func:`pick_tile`.
 
 Each kernel raises on what it does not take; there is no other route: a
-CUDA call that cannot launch raises. Both read the weights in OHWI order: a
+CUDA call that cannot launch raises. :func:`fused_irse_residual` calls the
+custom op ``fer_vit_tpu_torch::fused_irse_residual``
+(``torch.library.custom_op``): its CPU implementation is the plain version,
+its CUDA one runs :func:`route` and the kernel when it is called, its fake
+gives the output shapes and dtypes, and its backward recomputes through
+the plain version. A tracer (``torch.export``) keeps it as one opaque
+node, so an exported program picks its kernel at run time, from the
+tensors it is given. Both kernels read the weights in OHWI order: a
 caller that passes the HWIO view of an OHWI-contiguous tensor already in
 x's dtype (as ``BottleneckIRSE`` does) spares the per-call conversion.
 
@@ -363,39 +370,64 @@ def reset_launch_counts() -> None:
     fused_irse_residual.kernel_launches = dict.fromkeys(KERNELS, 0)
 
 
-class _FusedIRSEResidual(torch.autograd.Function):
-    """Forward through the kernel :func:`route` picks (or, for CPU tensors,
-    the plain version); backward recomputes through the plain version, as
-    the TPU kernel's ``_fused_bwd`` recomputes through its XLA reference.
-    The encoder is frozen on every shipped path, so this is a safety net,
-    not a hot path."""
+@torch.library.custom_op("fer_vit_tpu_torch::fused_irse_residual",
+                         mutates_args=())
+def _fused_irse_residual_op(x: torch.Tensor, a1: torch.Tensor,
+                            b1: torch.Tensor, w1: torch.Tensor,
+                            alpha: torch.Tensor, w2: torch.Tensor,
+                            b2: torch.Tensor,
+                            stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The opaque op that tracers (``torch.export``) keep as one node. Its
+    CPU implementation is the plain version; the CUDA one below picks the
+    kernel with :func:`route` when it runs, so an exported program reads
+    the layout and alignment of the tensors it is given, not of those it
+    was traced with."""
+    return fused_irse_residual_plain(x, a1, b1, w1, alpha, w2, b2,
+                                     stride=stride)
 
-    @staticmethod
-    def forward(ctx, x, a1, b1, w1, alpha, w2, b2, stride):
-        ctx.stride = stride
-        ctx.save_for_backward(x, a1, b1, w1, alpha, w2, b2)
-        if x.device.type == "cpu":
-            return fused_irse_residual_plain(x, a1, b1, w1, alpha, w2, b2,
-                                             stride=stride)
-        return KERNELS[route(x, w1, w2)](x, a1, b1, w1, alpha, w2, b2,
-                                         stride=stride)
 
-    @staticmethod
-    def backward(ctx, g_res2, g_sums):
-        primals = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [p.detach().requires_grad_(True) for p in primals]
-            res2, sums = fused_irse_residual_plain(*inputs, stride=ctx.stride)
-            grads = torch.autograd.grad(
-                (res2.float(), sums),
-                inputs,
-                (torch.zeros_like(res2, dtype=torch.float32) if g_res2 is None
-                 else g_res2.float(),
-                 torch.zeros_like(sums) if g_sums is None else g_sums.float()),
-                allow_unused=True)
-        grads = tuple(None if g is None else g.to(p.dtype)
-                      for g, p in zip(grads, primals))
-        return grads + (None,)
+@_fused_irse_residual_op.register_kernel("cuda")
+def _fused_irse_residual_cuda(x, a1, b1, w1, alpha, w2, b2, stride):
+    return KERNELS[route(x, w1, w2)](x, a1, b1, w1, alpha, w2, b2,
+                                     stride=stride)
+
+
+@_fused_irse_residual_op.register_fake
+def _fused_irse_residual_fake(x, a1, b1, w1, alpha, w2, b2, stride):
+    B, H, W, _ = x.shape
+    cout = w1.shape[-1]
+    return (x.new_empty((B, H // stride, W // stride, cout)),
+            x.new_empty((B, cout), dtype=torch.float32))
+
+
+def _fused_irse_setup(ctx, inputs, output) -> None:
+    ctx.stride = inputs[-1]
+    ctx.save_for_backward(*inputs[:-1])
+
+
+def _fused_irse_backward(ctx, g_res2, g_sums):
+    """Recomputes through the plain version, as the TPU kernel's
+    ``_fused_bwd`` recomputes through its XLA reference. The encoder is
+    frozen on every shipped path, so this is a safety net, not a hot
+    path."""
+    primals = ctx.saved_tensors
+    with torch.enable_grad():
+        inputs = [p.detach().requires_grad_(True) for p in primals]
+        res2, sums = fused_irse_residual_plain(*inputs, stride=ctx.stride)
+        grads = torch.autograd.grad(
+            (res2.float(), sums),
+            inputs,
+            (torch.zeros_like(res2, dtype=torch.float32) if g_res2 is None
+             else g_res2.float(),
+             torch.zeros_like(sums) if g_sums is None else g_sums.float()),
+            allow_unused=True)
+    grads = tuple(None if g is None else g.to(p.dtype)
+                  for g, p in zip(grads, primals))
+    return grads + (None,)
+
+
+_fused_irse_residual_op.register_autograd(_fused_irse_backward,
+                                          setup_context=_fused_irse_setup)
 
 
 def fused_irse_residual(x: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
@@ -419,7 +451,7 @@ def fused_irse_residual(x: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     through the plain version.
     """
     _check(x, a1, b1, w1, alpha, w2, b2, stride)
-    return _FusedIRSEResidual.apply(x, a1, b1, w1, alpha, w2, b2, stride)
+    return _fused_irse_residual_op(x, a1, b1, w1, alpha, w2, b2, stride)
 
 
 # Kernel launches on CUDA tensors since the counts were last set to 0: the

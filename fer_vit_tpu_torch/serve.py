@@ -1,52 +1,134 @@
-"""Batch inference: images -> (labels, probs), and the predict CLI.
+"""Batch inference, the predict CLI and the HTTP server.
 
-Port of ``fer_vit_tpu/serve.py``'s ``Predictor``, with its two routes: the
-latent route (preprocess -> pSp encode -> classify, for classifiers over w+
-codes) and the image route (ImageNet normalisation -> ImageViT or TimmViT);
-both end in an f32 softmax and argmax, at one fixed batch size. Requests of
-any length are cut into chunks padded to ``batch_size``, and up to
-``pipeline_depth`` chunks are in flight: CUDA work is queued without
-waiting, and fetching an older chunk's results to the host is the only
-wait. The answers do not depend on the depth.
+Port of ``fer_vit_tpu/serve.py``. :class:`Predictor` runs one function
+``(B, S, S, 3) images -> (labels, probs)`` (:class:`PredictFn`) at one fixed
+batch size, on either route: the latent route (preprocess -> pSp encode ->
+classify, for classifiers over w+ codes) and the image route (ImageNet
+normalisation -> ImageViT or TimmViT); both end in an f32 softmax and
+argmax. Requests of any length are cut into chunks padded to
+``batch_size``, and up to ``pipeline_depth`` chunks are in flight: CUDA
+work is queued without waiting, and fetching an older chunk's results to
+the host is the only wait. The answers do not depend on the depth.
 
-:meth:`Predictor.from_checkpoint` loads a trained checkpoint (the port's own,
-a JAX trainer's msgpack file or a reference-format torch file) and routes
-it by its config;
-:meth:`Predictor.predict_files` decodes image files on a background thread
-and :meth:`Predictor.predict_packed` reads pre-decoded packs
-(:mod:`fer_vit_tpu_torch.data.image_packs`). The offline predict CLI, with
-the JAX CLI's flags and report::
+* :meth:`Predictor.from_checkpoint` loads a trained checkpoint (the port's
+  own, a JAX trainer's msgpack file or a reference-format torch file) and
+  routes it by its config; :meth:`Predictor.from_exported` loads an AOT
+  artifact (:mod:`fer_vit_tpu_torch.export`) and runs it without the model
+  code.
+* ``mesh=`` (:func:`fer_vit_tpu_torch.core.mesh.make_mesh`) keeps a replica
+  of the classifier (and the encoder) on each device of the mesh's data
+  axis; each padded chunk is split into equal shards, every shard is
+  launched before any result is fetched, and the results are gathered in
+  order.
+* :meth:`Predictor.predict_files` decodes image files on a background
+  thread and :meth:`Predictor.predict_packed` reads pre-decoded packs
+  (:mod:`fer_vit_tpu_torch.data.image_packs`).
+* :class:`Batcher` coalesces concurrent single-image requests into device
+  batches, and :func:`make_server` serves them over HTTP (``GET /healthz``,
+  ``POST /predict``, ``POST /predict_batch``).
 
-    python -m fer_vit_tpu_torch.serve --checkpoint_path best_model.pt \
+The CLIs, with the JAX CLIs' flags::
+
+    python -m fer_vit_tpu_torch.serve --checkpoint_path best_model.pt \\
         --psp_weights psp.npz --input faces/ --output preds.json
-
-The HTTP server, ``--exported`` and ``--dp_devices`` other than 1 are not
-ported yet (ROADMAP.md queue 1 item 7).
+    python -m fer_vit_tpu_torch.serve serve --exported artifact/ --port 8000
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
+import io
 import json
 import os
+import queue
+import threading
+import time
 from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from fer_vit_tpu_torch import EMOTION_NAMES, NUM_CLASSES
-from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
-from fer_vit_tpu_torch.data.image_pipeline import IMAGE_EXTS, normalize_images
-from fer_vit_tpu_torch.encoders.psp import preprocess_images, to_unit_floats
-
-NOT_PORTED_ITEM_7 = ("{} is not ported yet (ROADMAP.md queue 1 item 7, "
-                     "serving and scale-out)")
+from fer_vit_tpu_torch.core.dtypes import (DeviceLike, indexed,
+                                           resolve_device, same_device)
+from fer_vit_tpu_torch.core.mesh import DATA_AXIS
 
 
 def _label_name(label: int) -> str:
     return (EMOTION_NAMES[label] if 0 <= label < len(EMOTION_NAMES)
             else str(label))
+
+
+def _on(device: torch.device):
+    """The CUDA device context for work launched on ``device`` (a batcher
+    thread starts on device 0), or nothing for the CPU."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class PredictFn(nn.Module):
+    """``images (B, S, S, 3) -> (labels (B,) int64, probs (B, C) f32)``:
+    the function a :class:`Predictor` runs and :mod:`fer_vit_tpu_torch.export`
+    traces. With ``encoder`` (a :class:`PSpEncoder`) it is the latent route,
+    without it the image route at ``input_size``. Its weights are the
+    state dicts of :meth:`weight_args`, which :meth:`functional` takes as
+    arguments."""
+
+    def __init__(self, model: nn.Module, encoder: Optional[nn.Module],
+                 input_size: int):
+        super().__init__()
+        self.model = model
+        self.encoder = encoder
+        self.input_size = int(input_size)
+
+    def forward(self, images: torch.Tensor):
+        if self.encoder is None:
+            from fer_vit_tpu_torch.data.image_pipeline import normalize_images
+            from fer_vit_tpu_torch.encoders.psp import to_unit_floats
+
+            logits = self.model(normalize_images(
+                to_unit_floats(images), out_size=self.input_size,
+                already_01=True))
+        else:
+            from fer_vit_tpu_torch.encoders.psp import preprocess_images
+
+            logits = self.model(self.encoder(
+                preprocess_images(images, size=self.input_size)))
+        probs = torch.softmax(logits.float(), dim=-1)
+        return torch.argmax(logits, dim=-1), probs
+
+    def _parts(self):
+        return (("model",) if self.encoder is None
+                else ("encoder", "model"))
+
+    def weight_args(self) -> tuple:
+        """The weights as arguments: one state dict per part, (encoder,
+        classifier) on the latent route and (classifier,) on the image
+        route, as the JAX predictor's ``_fn_args``."""
+        return tuple({k: v.detach() for k, v in
+                      getattr(self, part).state_dict().items()}
+                     for part in self._parts())
+
+    def functional(self, weights: Sequence[dict], images: torch.Tensor):
+        """:meth:`forward` with the parameters and buffers taken from
+        ``weights`` (as :meth:`weight_args` gives them)."""
+        merged = {f"{part}.{k}": v
+                  for part, sd in zip(self._parts(), weights)
+                  for k, v in sd.items()}
+        return torch.func.functional_call(self, merged, (images,))
+
+
+def _replica(fn: PredictFn, device: torch.device) -> PredictFn:
+    """A copy of ``fn`` on ``device``, without the cached casts
+    (:func:`fer_vit_tpu_torch.core.dtypes.cast_once`) of the original."""
+    rep = copy.deepcopy(fn)
+    for m in rep.modules():
+        m.__dict__.pop("_cast_once", None)
+    return rep.to(device)
 
 
 class Predictor:
@@ -58,11 +140,13 @@ class Predictor:
     ``device``. With ``image_route=True`` the model takes images (e.g.
     :class:`fer_vit_tpu_torch.models.ImageViT`), needs no encoder, and
     ``input_size`` defaults to the model's ``img_size``. ``device`` defaults
-    to CUDA; ``device="cpu"`` for the CPU."""
+    to CUDA; ``device="cpu"`` for the CPU. With ``mesh`` the predictor runs
+    on the mesh's data devices (the first one holds ``model`` and ``psp``)
+    and ``batch_size`` must be a multiple of their number."""
 
-    def __init__(self, model: torch.nn.Module, *, psp=None,
+    def __init__(self, model: nn.Module, *, psp=None,
                  batch_size: int = 64, image_route: bool = False,
-                 input_size: Optional[int] = None,
+                 input_size: Optional[int] = None, mesh=None,
                  pipeline_depth: int = 2, device: DeviceLike = None):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
@@ -83,22 +167,42 @@ class Predictor:
                 raise ValueError(
                     f"latent route: input_size ({input_size}) must equal "
                     f"the pSp encoder's input size ({size})")
-        self.device = resolve_device(device)
-        if psp is not None and psp.device != self.device:
+        self.batch_size = int(batch_size)
+        self.mesh = mesh
+        if mesh is None:
+            devices = [resolve_device(device)]
+        else:
+            devices = mesh.data_devices
+            n_data = mesh.shape[DATA_AXIS]
+            if self.batch_size % n_data != 0:
+                raise ValueError(
+                    f"batch_size ({self.batch_size}) must be a multiple of "
+                    f"the mesh data axis ({n_data}) for even sharding")
+            if device is not None and not same_device(
+                    resolve_device(device), devices[0]):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"data device {devices[0]}")
+        self.device = devices[0]
+        if psp is not None and not same_device(psp.device, self.device):
             raise ValueError(f"psp is on {psp.device}, the predictor on "
                              f"{self.device}")
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.psp = None if self.image_route else psp
         self._model_name = type(model).__name__
-        self.batch_size = int(batch_size)
+        self._input_dtypes = None  # set by from_exported: pinned dtypes
         self.pipeline_depth = int(pipeline_depth)
         self.num_classes = int(getattr(model, "num_classes", NUM_CLASSES))
         self.input_size = size
+        fn = PredictFn(self.model, None if self.psp is None
+                       else self.psp.encoder, size)
+        self._fn = fn
+        self._replicas = [(self.device, fn)] + [
+            (d, _replica(fn, d)) for d in devices[1:]]
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: str, *,
                         psp_weights: Optional[str] = None, psp=None,
-                        batch_size: int = 64,
+                        batch_size: int = 64, mesh=None,
                         dtype: Optional[torch.dtype] = None,
                         pipeline_depth: int = 2,
                         device: DeviceLike = None) -> "Predictor":
@@ -110,17 +214,20 @@ class Predictor:
         ``psp_weights`` (a converted pSp ``.npz`` in the JAX package's
         layout, or a pSp ``.pt`` checkpoint). ``dtype`` is the compute dtype
         of the classifier and the encoder (None: bf16 on CUDA, f32 on the
-        CPU); ``device`` defaults to CUDA."""
+        CPU); ``device`` defaults to CUDA (with ``mesh``, the mesh's first
+        data device)."""
         from fer_vit_tpu_torch.eval.evaluate_model import (is_image_config,
                                                            load_model)
 
-        device = resolve_device(device)
+        device = (mesh.data_devices[0] if mesh is not None and device is None
+                  else resolve_device(device))
         model, config = load_model(checkpoint_path, dtype=dtype)
         model_config = config.get("model", config)
         if is_image_config(model_config):
             return cls(model, batch_size=batch_size, image_route=True,
                        input_size=model_config.get("img_size", 224),
-                       pipeline_depth=pipeline_depth, device=device)
+                       mesh=mesh, pipeline_depth=pipeline_depth,
+                       device=device)
         if psp is None:
             if psp_weights is None:
                 raise ValueError(
@@ -131,11 +238,44 @@ class Predictor:
             from fer_vit_tpu_torch.data.generate_latents import load_encoder
 
             psp = load_encoder(psp_weights, device, dtype=dtype)
-        return cls(model, psp=psp, batch_size=batch_size,
+        return cls(model, psp=psp, batch_size=batch_size, mesh=mesh,
                    pipeline_depth=pipeline_depth, device=device)
 
+    @classmethod
+    def from_exported(cls, artifact_dir: str, *, pipeline_depth: int = 2,
+                      device: DeviceLike = None) -> "Predictor":
+        """Load an AOT artifact (``python -m fer_vit_tpu_torch.export``,
+        :func:`fer_vit_tpu_torch.export.export_predictor`): the whole
+        pipeline reloads from the exported programs and the weights file,
+        with no model code on the path. The batch size, the input size and
+        the input dtypes are the artifact's; each call goes to the program
+        of its input dtype, and other dtypes are refused. One device only
+        (an exported program is a closed single-device program): for
+        data-parallel serving use ``from_checkpoint`` with a mesh.
+        ``device`` defaults to CUDA."""
+        from fer_vit_tpu_torch.export import load_exported
+
+        calls_by_dtype, weight_args, meta = load_exported(artifact_dir,
+                                                          device=device)
+        self = cls.__new__(cls)
+        self.model = self.psp = self.mesh = None
+        self._model_name = meta["model"]
+        self._input_dtypes = tuple(calls_by_dtype)
+        self.batch_size = int(meta["batch_size"])
+        self.pipeline_depth = int(pipeline_depth)
+        self.image_route = meta["route"] == "image"
+        self.num_classes = int(meta["num_classes"])
+        self.input_size = int(meta["input_size"])
+        self.device = resolve_device(device)
+        self._calls = calls_by_dtype
+        by_dtype = {getattr(torch, d.name): c
+                    for d, c in calls_by_dtype.items()}
+        self._replicas = [(self.device, lambda images: by_dtype[
+            images.dtype](weight_args, images))]
+        return self
+
     def describe(self) -> dict:
-        return {
+        out = {
             "route": "image" if self.image_route else "latent",
             "model": self._model_name,
             "batch_size": self.batch_size,
@@ -143,18 +283,9 @@ class Predictor:
             "num_classes": self.num_classes,
             "device": str(self.device),
         }
-
-    def _forward(self, images: torch.Tensor):
-        with torch.inference_mode():
-            if self.image_route:
-                logits = self.model(normalize_images(
-                    to_unit_floats(images), out_size=self.input_size,
-                    already_01=True))
-            else:
-                x = preprocess_images(images, size=self.input_size)
-                logits = self.model(self.psp.encoder(x))
-            probs = torch.softmax(logits.float(), dim=-1)
-            return torch.argmax(logits, dim=-1), probs
+        if self.mesh is not None:
+            out["mesh"] = dict(self.mesh.shape)
+        return out
 
     def predict(self, images) -> Tuple[np.ndarray, np.ndarray]:
         """(N, S, S, 3) images (uint8 0-255, or float 0-1 / 0-255) ->
@@ -185,15 +316,14 @@ class Predictor:
         inflight: deque = deque()
 
         def drain_one() -> None:
-            k0, l0, p0, _ = inflight.popleft()
-            labels_out.append(l0[:k0].cpu().numpy().astype(np.int32))
-            probs_out.append(p0[:k0].cpu().numpy().astype(np.float32))
+            k0, shards = inflight.popleft()
+            labels = np.concatenate([l.cpu().numpy() for l, _, _ in shards])
+            probs = np.concatenate([p.cpu().numpy() for _, p, _ in shards])
+            labels_out.append(labels[:k0].astype(np.int32))
+            probs_out.append(probs[:k0].astype(np.float32))
 
         for imgs, k in batch_iter:
-            host, dev = self._put(imgs)
-            labels, probs = self._forward(dev)
-            # the pinned host buffer stays referenced until its copy is done
-            inflight.append((k, labels, probs, host))
+            inflight.append((k, self._launch(imgs)))
             if len(inflight) > self.pipeline_depth:
                 drain_one()
         while inflight:
@@ -203,12 +333,28 @@ class Predictor:
                     np.zeros((0, self.num_classes), np.float32))
         return np.concatenate(labels_out), np.concatenate(probs_out)
 
-    def _put(self, chunk: np.ndarray):
-        host = torch.from_numpy(np.ascontiguousarray(chunk))
-        if self.device.type != "cuda":
-            return host, host.to(self.device)
-        host = host.pin_memory()
-        return host, host.to(self.device, non_blocking=True)
+    def _launch(self, chunk: np.ndarray) -> list:
+        """Queues one padded chunk: one equal shard per replica, each
+        launched on its device before any result is fetched. Returns
+        (labels, probs, pinned host buffer) per shard; the buffer stays
+        referenced until its copy is done."""
+        if (self._input_dtypes is not None
+                and chunk.dtype not in self._input_dtypes):
+            # an artifact pins its input signatures; a silent cast could
+            # change values (float 0-1 vs uint8 0-255), so refuse instead
+            raise ValueError(
+                f"this exported predictor pins input dtypes "
+                f"{[d.name for d in self._input_dtypes]}, got "
+                f"{chunk.dtype}; re-export with --input_dtypes including "
+                f"{chunk.dtype}, or feed a supported dtype")
+        per = len(chunk) // len(self._replicas)
+        out = []
+        for i, (dev, fn) in enumerate(self._replicas):
+            host, x = _put(chunk[i * per:(i + 1) * per], dev)
+            with _on(dev), torch.inference_mode():
+                labels, probs = fn(x)
+            out.append((labels, probs, host))
+        return out
 
     def predict_files(self, paths: Sequence[str], prefetch: int = 2,
                       return_decode_ok: bool = False):
@@ -264,6 +410,307 @@ class Predictor:
                               np.uint8))
 
 
+def _put(chunk: np.ndarray, device: torch.device):
+    host = torch.from_numpy(np.ascontiguousarray(chunk))
+    if device.type != "cuda":
+        return host, host.to(device)
+    host = host.pin_memory()
+    return host, host.to(device, non_blocking=True)
+
+
+# -- dynamic request batching --------------------------------------------------
+
+
+class _Request:
+    __slots__ = ("image", "event", "result", "error")
+
+    def __init__(self, image: np.ndarray):
+        self.image = image
+        self.event = threading.Event()
+        self.result: Optional[dict] = None
+        self.error: Optional[Exception] = None
+
+
+class QueueFullError(RuntimeError):
+    """Raised by :meth:`Batcher.submit` when the pending-request queue is
+    at its bound; the server answers 429 (load shedding)."""
+
+
+class Batcher:
+    """Coalesces concurrent single-image requests into device batches.
+
+    A background thread blocks on the queue; from the first request it
+    waits up to ``max_wait_ms`` (or until ``max_batch`` requests are queued)
+    before it runs the predictor, so a burst rides one device call.
+
+    Backpressure: at most ``max_queue`` requests may be pending (default
+    ``8 * max_batch``); beyond that :meth:`submit` sheds load with
+    :class:`QueueFullError`. ``submit_timeout`` is the default bound of one
+    request's wait, in seconds: raise it for a server built without
+    ``warmup()``, where the first request pays the kernels' build."""
+
+    def __init__(self, predictor: Predictor, max_batch: Optional[int] = None,
+                 max_wait_ms: float = 5.0, max_queue: Optional[int] = None,
+                 submit_timeout: float = 30.0):
+        self.predictor = predictor
+        self.max_batch = int(max_batch or predictor.batch_size)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self.max_queue = int(max_queue if max_queue is not None
+                             else 8 * self.max_batch)
+        if self.max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        self.submit_timeout = float(submit_timeout)
+        self.device_batches = 0  # predictor calls the loop has made
+        # the card the loop launches on: the predictor's, by index (a
+        # thread starts on card 0 whatever the creating thread's is)
+        device = getattr(predictor, "device", None)
+        self._card = (indexed(device) if device is not None
+                      and device.type == "cuda" else None)
+        self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._stop = threading.Event()
+        # serialises the closed-check and the enqueue against close(), so
+        # no request slips into the queue after the drain
+        self._submit_lock = threading.Lock()
+        self._thread = threading.Thread(
+            target=self._loop, name="fervit-batcher", daemon=True)
+        self._thread.start()
+
+    def submit(self, image: np.ndarray,
+               timeout: Optional[float] = None) -> dict:
+        timeout = self.submit_timeout if timeout is None else timeout
+        image = np.asarray(image)
+        s = self.predictor.input_size
+        if image.shape != (s, s, 3):
+            # refuse a malformed submission alone: inside the batch loop a
+            # wrong shape would fail every coalesced request
+            raise ValueError(
+                f"expected a ({s}, {s}, 3) image, got {image.shape}")
+        req = _Request(image)
+        with self._submit_lock:
+            if self._stop.is_set():
+                raise RuntimeError("batcher is closed")
+            if self._q.qsize() >= self.max_queue:
+                raise QueueFullError(
+                    f"request queue full ({self.max_queue} pending)")
+            self._q.put(req)
+        if not req.event.wait(timeout):
+            raise TimeoutError(f"inference did not finish in {timeout}s")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def _loop(self) -> None:
+        if self._card is not None:
+            torch.cuda.set_device(self._card)
+        while not self._stop.is_set():
+            try:
+                first = self._q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+            if first is None:
+                continue
+            batch = [first]
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    req = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if req is not None:
+                    batch.append(req)
+            try:
+                images = np.stack([r.image for r in batch])
+                self.device_batches += 1
+                labels, probs = self.predictor.predict(images)
+            except Exception as e:  # report to every waiter, keep serving
+                for r in batch:
+                    r.error = e
+                    r.event.set()
+                continue
+            for r, label, prob in zip(batch, labels, probs):
+                r.result = {
+                    "label": int(label),
+                    "label_name": _label_name(int(label)),
+                    "probs": [float(p) for p in prob],
+                }
+                r.event.set()
+
+    def close(self) -> None:
+        with self._submit_lock:
+            self._stop.set()
+            self._q.put(None)
+        self._thread.join(timeout=5.0)
+        # fail any request still queued when the loop ended, rather than
+        # leave its waiter to wait out its timeout
+        while True:
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                break
+            if req is not None:
+                req.error = RuntimeError("batcher is closed")
+                req.event.set()
+
+
+# -- HTTP server ----------------------------------------------------------------
+
+
+def _decode_request_image(body: bytes, size: int) -> np.ndarray:
+    """Request bytes (any format PIL reads) -> (size, size, 3) uint8."""
+    from PIL import Image
+
+    with Image.open(io.BytesIO(body)) as im:
+        im = im.convert("RGB").resize((size, size), Image.BILINEAR)
+        return np.asarray(im, dtype=np.uint8)
+
+
+# request-body cap: an encoded face is a few MB at most; a larger body is a
+# mistake or an attempt to exhaust memory, refused before it is read
+MAX_REQUEST_BYTES = 32 * 1024 * 1024
+
+
+def _health(predictor) -> dict:
+    device = getattr(predictor, "device", None)
+    out = {"ok": True,
+           "platform": None if device is None else device.type,
+           "model": predictor.describe()}
+    if device is not None and device.type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(device)
+    return out
+
+
+def make_server(predictor: Predictor, host: str = "127.0.0.1",
+                port: int = 8000, max_batch: Optional[int] = None,
+                max_wait_ms: float = 5.0, quiet: bool = True,
+                max_queue: Optional[int] = None,
+                submit_timeout: float = 30.0):
+    """A ``ThreadingHTTPServer`` over ``predictor`` (``.batcher`` attached
+    for shutdown).
+
+    Routes: ``GET /healthz`` -> the platform (``cuda`` or ``cpu``), the
+    card's name and the model; ``POST /predict`` with raw image bytes ->
+    ``{"label", "label_name", "probs"}``; ``POST /predict_batch`` with one
+    uint8 ``.npy`` of (N, S, S, 3) -> ``{"predictions": [...]}`` from one
+    predictor call. More than ``max_queue`` pending requests -> 429 with
+    ``Retry-After``; a request older than ``submit_timeout`` seconds -> 503.
+    Call ``predictor.warmup()`` first (the CLI does), or raise
+    ``submit_timeout`` past the kernels' build."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    batcher = Batcher(predictor, max_batch=max_batch,
+                      max_wait_ms=max_wait_ms, max_queue=max_queue,
+                      submit_timeout=submit_timeout)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *fmt_args):  # noqa: N802
+            if not quiet:
+                BaseHTTPRequestHandler.log_message(self, fmt, *fmt_args)
+
+        def _json(self, code: int, obj: dict, headers=()) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in headers:
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _length(self) -> int:
+            try:
+                return int(self.headers.get("Content-Length", 0))
+            except ValueError:
+                return 0
+
+        def do_GET(self):  # noqa: N802
+            if self.path in ("/healthz", "/health"):
+                self._json(200, _health(predictor))
+            else:
+                self._json(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):  # noqa: N802
+            if self.path == "/predict_batch":
+                self._predict_batch()
+                return
+            if self.path != "/predict":
+                self._json(404, {"error": f"no route {self.path}"})
+                return
+            length = self._length()
+            if length <= 0:
+                self._json(400, {"error": "empty body; POST image bytes"})
+                return
+            if length > MAX_REQUEST_BYTES:
+                self._json(413, {"error": (
+                    f"body too large ({length} bytes; "
+                    f"max {MAX_REQUEST_BYTES})")})
+                return
+            body = self.rfile.read(length)
+            try:
+                image = _decode_request_image(body, predictor.input_size)
+            except Exception as e:
+                self._json(400, {"error": f"undecodable image: {e}"})
+                return
+            try:
+                result = batcher.submit(image)
+            except QueueFullError as e:
+                self._json(429, {"error": str(e)}, [("Retry-After", "1")])
+                return
+            except TimeoutError as e:
+                self._json(503, {"error": str(e)})
+                return
+            except Exception as e:
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._json(200, result)
+
+        def _predict_batch(self) -> None:
+            """Bulk route: one ``.npy`` of (N, S, S, 3) uint8 -> one
+            predictor call -> a JSON list, for clients that hold whole
+            arrays."""
+            length = self._length()
+            if length <= 0 or length > MAX_REQUEST_BYTES:
+                self._json(400 if length <= 0 else 413,
+                           {"error": f"bad Content-Length {length} "
+                                     f"(max {MAX_REQUEST_BYTES})"})
+                return
+            try:
+                images = np.load(io.BytesIO(self.rfile.read(length)),
+                                 allow_pickle=False)
+            except Exception as e:
+                self._json(400, {"error": f"not a .npy payload: {e}"})
+                return
+            s = predictor.input_size
+            if (images.ndim != 4 or images.shape[1:] != (s, s, 3)
+                    or images.dtype != np.uint8):
+                self._json(400, {"error": (
+                    f"expected uint8 (N, {s}, {s}, 3), got "
+                    f"{images.dtype} {images.shape}")})
+                return
+            try:
+                labels, probs = predictor.predict(images)
+            except Exception as e:
+                self._json(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._json(200, {"predictions": [
+                {"label": int(l), "label_name": _label_name(int(l)),
+                 "probs": [float(p) for p in pr]}
+                for l, pr in zip(labels, probs)]})
+
+    # the standard library's listen backlog is 5: a burst of 32 clients
+    # overflows the accept queue and they see connection resets before the
+    # batcher can shed load, so the backlog is raised past max_queue and
+    # backpressure is the 429 path
+    class _Server(ThreadingHTTPServer):
+        request_queue_size = max(128, batcher.max_queue + batcher.max_batch)
+
+    server = _Server((host, port), Handler)
+    server.batcher = batcher
+    return server
+
+
 # -- the predict CLI -----------------------------------------------------------
 
 
@@ -276,6 +723,8 @@ def _collect_inputs(inputs: Sequence[str]) -> List[str]:
         if path not in seen:
             seen.add(path)
             out.append(path)
+
+    from fer_vit_tpu_torch.data.image_pipeline import IMAGE_EXTS
 
     for item in inputs:
         if os.path.isdir(item):
@@ -299,8 +748,10 @@ def build_predict_parser() -> argparse.ArgumentParser:
                    help="FER checkpoint (the port's own or a JAX trainer's "
                         "msgpack file); mutually exclusive with --exported")
     p.add_argument("--exported", default=None,
-                   help="AOT artifact directory (not ported yet); "
-                        "mutually exclusive with --checkpoint_path")
+                   help="AOT artifact directory (python -m "
+                        "fer_vit_tpu_torch.export): reloads the exported "
+                        "pipeline without model code; mutually exclusive "
+                        "with --checkpoint_path")
     p.add_argument("--input", default=None, nargs="+",
                    help="image files and/or directories (recursive)")
     p.add_argument("--packed", default=None,
@@ -318,10 +769,32 @@ def build_predict_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline_depth", type=int, default=2,
                    help="batches kept in flight on the device (overlaps "
                         "transfer and compute with the fetch of results)")
+    _add_dp_flag(p)
+    return p
+
+
+def _add_dp_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dp_devices", type=int, default=1,
                    help="shard request batches over this many devices "
-                        "(only 1 is ported yet)")
-    return p
+                        "(data-parallel; -1 = all devices, 1 = no mesh)")
+
+
+def _mesh_from_flag(dp_devices: int, device: DeviceLike = None):
+    """The data-parallel mesh ``--dp_devices`` asks for over the visible
+    devices of ``device``'s type (every card; the CPU is one device), or
+    None for 1."""
+    if dp_devices == 1:
+        return None
+    if dp_devices < 1 and dp_devices != -1:
+        raise SystemExit(
+            f"--dp_devices must be a positive device count or -1 (all "
+            f"devices), got {dp_devices}")
+    from fer_vit_tpu_torch.core.mesh import (MeshConfig, make_mesh,
+                                             visible_devices)
+
+    devices = visible_devices(device)
+    n = len(devices) if dp_devices == -1 else dp_devices
+    return make_mesh(MeshConfig(data=n, model=1), devices)
 
 
 def _predictor_from_args(args, device: DeviceLike = None) -> Predictor:
@@ -329,15 +802,20 @@ def _predictor_from_args(args, device: DeviceLike = None) -> Predictor:
     if (args.checkpoint_path is None) == (exported is None):
         raise SystemExit(
             "pass exactly one of --checkpoint_path or --exported")
+    depth = getattr(args, "pipeline_depth", 2)
     if exported is not None:
-        raise SystemExit(NOT_PORTED_ITEM_7.format("--exported"))
-    if getattr(args, "dp_devices", 1) != 1:
-        raise SystemExit(NOT_PORTED_ITEM_7.format(
-            f"--dp_devices {args.dp_devices} (data-parallel serving)"))
+        if getattr(args, "dp_devices", 1) != 1:
+            raise SystemExit(
+                "--exported is a closed single-device program and cannot "
+                "shard over --dp_devices; use --checkpoint_path for "
+                "data-parallel serving")
+        return Predictor.from_exported(exported, pipeline_depth=depth,
+                                       device=device)
+    mesh = _mesh_from_flag(args.dp_devices, device)
     return Predictor.from_checkpoint(
         args.checkpoint_path, psp_weights=args.psp_weights,
-        batch_size=args.batch_size,
-        pipeline_depth=getattr(args, "pipeline_depth", 2), device=device)
+        batch_size=args.batch_size, mesh=mesh, pipeline_depth=depth,
+        device=None if mesh is not None else device)
 
 
 def predict_main(args, device: DeviceLike = None) -> dict:
@@ -378,7 +856,8 @@ def predict_main(args, device: DeviceLike = None) -> dict:
         })
     failures = [p for p, ok in zip(paths, decode_ok) if not ok]
     report = {
-        "checkpoint": args.checkpoint_path,
+        "checkpoint": args.checkpoint_path or getattr(args, "exported",
+                                                      None),
         "model": predictor.describe(),
         "num_images": len(paths),
         "decode_failures": failures,
@@ -398,9 +877,65 @@ def predict_main(args, device: DeviceLike = None) -> dict:
     return report
 
 
+def build_serve_parser() -> argparse.ArgumentParser:
+    """The JAX ``fervit-serve`` flags, unchanged."""
+    p = argparse.ArgumentParser(
+        description="FER inference HTTP server with dynamic batching")
+    p.add_argument("--checkpoint_path", default=None,
+                   help="FER checkpoint (the port's own or a JAX trainer's "
+                        "msgpack file); mutually exclusive with --exported")
+    p.add_argument("--exported", default=None,
+                   help="AOT artifact directory (python -m "
+                        "fer_vit_tpu_torch.export); mutually exclusive with "
+                        "--checkpoint_path")
+    p.add_argument("--psp_weights", default=None,
+                   help="converted pSp encoder .npz or pSp .pt (required "
+                        "for latent-space checkpoints)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--batch_size", type=int, default=64,
+                   help="device batch size")
+    p.add_argument("--max_batch", type=int, default=None,
+                   help="max requests coalesced per device call "
+                        "(default: batch_size)")
+    p.add_argument("--max_wait_ms", type=float, default=5.0,
+                   help="batching window after the first queued request")
+    p.add_argument("--max_queue", type=int, default=None,
+                   help="pending-request bound before 429 load shedding "
+                        "(default: 8 * max_batch)")
+    p.add_argument("--submit_timeout", type=float, default=30.0,
+                   help="per-request wall-clock bound in seconds before "
+                        "a 503 is returned")
+    _add_dp_flag(p)
+    return p
+
+
+def serve_main(args, device: DeviceLike = None) -> None:
+    """The server CLI: load, warm up, serve until interrupted. ``device``
+    defaults to CUDA."""
+    predictor = _predictor_from_args(args, device)
+    print(f"warming up {predictor.describe()} ...")
+    predictor.warmup()
+    server = make_server(predictor, host=args.host, port=args.port,
+                         max_batch=args.max_batch,
+                         max_wait_ms=args.max_wait_ms, quiet=False,
+                         max_queue=args.max_queue,
+                         submit_timeout=args.submit_timeout)
+    print(f"serving on http://{args.host}:{server.server_port} "
+          f"(POST /predict, POST /predict_batch, GET /healthz)")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.batcher.close()
+        server.server_close()
+
+
 if __name__ == "__main__":
     import sys
 
     if len(sys.argv) > 1 and sys.argv[1] == "serve":
-        raise SystemExit(NOT_PORTED_ITEM_7.format("the HTTP server"))
-    predict_main(build_predict_parser().parse_args())
+        serve_main(build_serve_parser().parse_args(sys.argv[2:]))
+    else:
+        predict_main(build_predict_parser().parse_args())

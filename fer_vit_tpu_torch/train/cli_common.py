@@ -2,8 +2,11 @@
 
 Port of ``fer_vit_tpu/train/cli_common.py``: each CLI builds its model and
 ``TrainConfig``, then :func:`run_latent_training` does the rest (harness,
-resume, logger, fit, summary). One device: the data-parallel branch of the
-JAX module waits for the port's DDP slice.
+resume, logger, fit, summary). Where the JAX module builds a data-parallel
+mesh over several devices, the port runs data-parallel over a process group
+of more than one process (:func:`fer_vit_tpu_torch.core.distributed.initialize`;
+the harness splits each global batch and sums the gradients), and rank 0
+alone writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from fer_vit_tpu_torch.core import distributed
 from fer_vit_tpu_torch.core.dtypes import DeviceLike
 from fer_vit_tpu_torch.data.latent_augment import (get_latent_train_transforms,
                                                    latent_augment)
@@ -95,6 +99,13 @@ def load_resume(args, state):
             loaded.get("scheduler_state"))
 
 
+class _NullLogger:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
+
+
 def run_latent_training(
     args,
     model: torch.nn.Module,
@@ -127,12 +138,17 @@ def run_latent_training(
                       lr_mult=lr_mult, wd_mask=wd_mask, augment_fn=augment_fn,
                       device=device)
     print(f"Using device: {harness.device}")
+    if distributed.data_parallel():
+        print(f"Data-parallel over {distributed.world_size()} processes "
+              f"(rank {distributed.rank()})")
     state = harness.init_state()
     if init_params_patch is not None:
         init_params_patch(state.model)
     state, start_epoch, initial_best, sched_state = load_resume(args, state)
 
-    logger = ExperimentLogger(experiment_name, base_dir=args.experiments_dir)
+    rank0 = distributed.rank() == 0
+    logger = (ExperimentLogger(experiment_name, base_dir=args.experiments_dir)
+              if rank0 else _NullLogger())
     logger.log_config(config)
     results = fit(
         harness, state,
@@ -143,6 +159,7 @@ def run_latent_training(
         initial_best_f1=initial_best,
         scheduler_state=sched_state,
         lr_group_mults=lr_group_mults,
+        verbose=rank0,
     )
     final = dict(results["final_metrics"],
                  data_fraction=getattr(args, "data_fraction", 1.0))

@@ -35,6 +35,18 @@ train/train_latent_vit.py:108-148), best checkpoint on val macro-F1.
   running statistics, the clean post-step forward too (the JAX step
   threads the loss forward's statistics into it and keeps what it
   returns); evaluation and predictions run in ``eval()`` mode on them.
+* Data parallelism (JAX: the step jitted over a mesh's data axis): when a
+  process group is up
+  (:func:`fer_vit_tpu_torch.core.distributed.initialize`), every rank
+  draws the same shuffle and mixup, builds the same global batch, and runs
+  the forward on its slice of it (:func:`process_local_batch_slice`). The
+  loss is the global batch's: the weight sums of the cross entropy are
+  summed over the group before the division, and each rank's loss is its
+  share of the numerator over that global sum, so summing the ranks'
+  gradients (all-reduced before the update) gives the gradient of the
+  global loss. ``MaskedBatchNorm`` takes its moments over the global batch
+  too. The epoch's loss sums and confusion matrices are summed over the
+  group at the end. Dropout masks are drawn per rank.
 """
 
 from __future__ import annotations
@@ -47,9 +59,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from fer_vit_tpu_torch.core import distributed
 from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
 from fer_vit_tpu_torch.data.latent_augment import LatentAugmentConfig
-from fer_vit_tpu_torch.train.losses import cross_entropy
+from fer_vit_tpu_torch.train.losses import cross_entropy, cross_entropy_parts
 from fer_vit_tpu_torch.utils.metrics import confusion_update
 
 
@@ -183,6 +196,39 @@ class Harness:
         except (TypeError, ValueError):
             params = {}
         self.accepts_mask = "mask" in params
+        n = distributed.world_size()
+        if self.cfg.batch_size % n:
+            raise ValueError(f"batch_size ({self.cfg.batch_size}) must be a "
+                             f"multiple of the process group's size ({n})")
+
+    def _ce(self, logits, labels, class_weights, mask) -> torch.Tensor:
+        """The cross entropy of the global batch; with data parallelism,
+        this rank's share of it (its numerator over the group's weight
+        sum)."""
+        if not distributed.data_parallel():
+            return cross_entropy(logits, labels, class_weights,
+                                 self.cfg.label_smoothing, mask)
+        num, den = cross_entropy_parts(logits, labels, class_weights,
+                                       self.cfg.label_smoothing, mask)
+        den = distributed.all_reduce_sum_(den.detach().clone())
+        return num / den.clamp_min(1e-12)
+
+    @staticmethod
+    def _local(*tensors):
+        """This rank's slice of each global-batch tensor (all of it
+        without data parallelism)."""
+        if not distributed.data_parallel():
+            return tensors
+        sl = distributed.process_local_batch_slice(tensors[0].shape[0])
+        return tuple(t[sl] for t in tensors)
+
+    @staticmethod
+    def _global_loss(loss: torch.Tensor) -> torch.Tensor:
+        """The global batch's loss from this rank's share of it."""
+        loss = loss.detach()
+        if distributed.data_parallel():
+            loss = distributed.all_reduce_sum_(loss.clone())
+        return loss
 
     def _train_forward(self, model: nn.Module, x: torch.Tensor,
                        mask: torch.Tensor) -> torch.Tensor:
@@ -239,15 +285,16 @@ class Harness:
         xb = xb * mask.view((b,) + (1,) * (xb.dim() - 1)).to(xb.dtype)
         x_mixed = lam * xb + (1.0 - lam) * xb[perm]
         yb_perm = yb[perm]
+        # with data parallelism, this rank's slice of the global batch
+        x_mixed, xb, yb, yb_perm, mask = self._local(x_mixed, xb, yb,
+                                                     yb_perm, mask)
 
         model.train()
         logits = self._train_forward(model, x_mixed, mask)
-        loss_a = cross_entropy(logits, yb, class_weights,
-                               cfg.label_smoothing, mask)
+        loss_a = self._ce(logits, yb, class_weights, mask)
         # after the redirect both label streams share the row's own
         # validity (real rows mix with real rows, pads with pads)
-        loss_b = cross_entropy(logits, yb_perm, class_weights,
-                               cfg.label_smoothing, mask)
+        loss_b = self._ce(logits, yb_perm, class_weights, mask)
         loss = lam * loss_a + (1.0 - lam) * loss_b
 
         opt = state.optimizer
@@ -255,6 +302,8 @@ class Harness:
             g["lr"] = lr * g["lr_mult"]
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        if distributed.data_parallel():
+            distributed.all_reduce_grads_(model.parameters())
         if cfg.grad_clip > 0:
             clip_grad_global_norm_(model.parameters(), cfg.grad_clip)
         opt.step()
@@ -270,8 +319,9 @@ class Harness:
             else:
                 preds = logits.argmax(dim=-1)
             n_valid = mask.float().sum()
-            return {"loss_sum": loss.detach() * n_valid, "n": n_valid,
-                    "preds": preds, "labels": yb, "mask": mask}
+            return {"loss_sum": self._global_loss(loss) * n_valid,
+                    "n": n_valid, "preds": preds, "labels": yb,
+                    "mask": mask}
 
     def eval_input(self, xb: torch.Tensor) -> torch.Tensor:
         """``xb`` as the eval forwards take it (``eval_transform``)."""
@@ -281,11 +331,11 @@ class Harness:
     def eval_step(self, state: TrainState, xb, yb, mask,
                   class_weights=None) -> Dict[str, torch.Tensor]:
         state.model.eval()
+        xb, yb, mask = self._local(xb, yb, mask)
         logits = state.model(self.eval_input(xb))
-        loss = cross_entropy(logits, yb, class_weights,
-                             self.cfg.label_smoothing, mask)
+        loss = self._ce(logits, yb, class_weights, mask)
         n_valid = mask.float().sum()
-        return {"loss_sum": loss * n_valid, "n": n_valid,
+        return {"loss_sum": self._global_loss(loss) * n_valid, "n": n_valid,
                 "preds": logits.argmax(dim=-1), "labels": yb, "mask": mask,
                 "logits": logits}
 
@@ -315,6 +365,9 @@ class Harness:
                                   stats["mask"])
             loss_sum += stats["loss_sum"]
             n_sum += stats["n"]
+        if distributed.data_parallel():
+            for t in (loss_sum, n_sum, cm):
+                distributed.all_reduce_sum_(t)
         return loss_sum / n_sum.clamp_min(1.0), cm
 
     def train_epoch(self, state: TrainState, rng: np.random.Generator,

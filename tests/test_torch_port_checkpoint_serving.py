@@ -537,10 +537,11 @@ def test_predict_cli_refuses_what_is_not_ported(image_ckpt, tmp_path):
         predict_main(parse(["--checkpoint_path", ckpt]), device="cpu")
     with pytest.raises(SystemExit, match="exactly one of --checkpoint"):
         predict_main(parse(["--input", str(tmp_path)]), device="cpu")
-    with pytest.raises(SystemExit, match="--exported.*queue 1 item 7"):
+    with pytest.raises(FileNotFoundError,
+                       match="not an exported-predictor directory"):
         predict_main(parse(["--exported", str(tmp_path), "--input",
                             str(tmp_path)]), device="cpu")
-    with pytest.raises(SystemExit, match="--dp_devices.*queue 1 item 7"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         predict_main(parse(["--checkpoint_path", ckpt, "--dp_devices", "2",
                             "--input", str(tmp_path)]), device="cpu")
     image_packs.write_image_pack(_png_dir(tmp_path / "i", n=1),

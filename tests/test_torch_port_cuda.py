@@ -10,7 +10,10 @@ card against the CPU, and ``generate_latents`` on a few images with its
 launch counts; the SVM directions and SeFa's eigh on the card against the
 CPU, and the image evaluator's K2 launches; the AFS modules (the StyleGAN2
 generator, ArcFace, LPIPS, the style extractor and a training step)
-against the CPU, with none of the kernels launched. Marked
+against the CPU, with none of the kernels launched; both kernels' custom
+ops through the dispatcher against their plain versions (with
+``torch.library.opcheck`` on CUDA tensors), and exported bf16 programs'
+launch counts. Marked
 ``cuda``; they skip without a CUDA device. This
 file imports neither JAX nor the JAX package, so it also runs where JAX is
 not installed::
@@ -714,3 +717,91 @@ def test_afs_train_step_card_matches_cpu(smoke):
         assert abs(float(got[k]) - float(ref[k])) <= \
             AFS_STEP_LOSS_RTOL * abs(float(ref[k])), k
     assert float((g_got - g_ref).norm() / g_ref.norm()) <= AFS_STEP_GRAD_RTOL
+
+
+# -- the kernels as custom ops, and exported programs on the card -------------
+
+
+@pytest.mark.parametrize("H,cin,cout,stride", [SHAPES[0], SHAPES[4],
+                                               SHAPES[7]])
+def test_fused_irse_custom_op_matches_plain(smoke, H, cin, cout, stride):
+    """The registered op, called through the dispatcher, launches the
+    kernel that ``route`` picks (the sm90 one in bf16) and agrees with the
+    plain version; ``opcheck`` passes on CUDA tensors."""
+    args = smoke.unit_inputs(torch, H, H, cin, cout, 2, 3, "cuda",
+                             torch.bfloat16)
+    fu.reset_launch_counts()
+    got = torch.ops.fer_vit_tpu_torch.fused_irse_residual(*args, stride)
+    assert fu.fused_irse_residual.kernel_launches == {fu.SM90: 1, fu.MMA: 0}
+    ref = fused_irse_residual_plain(*args, stride=stride)
+    cmp = smoke.compare_unit(torch, got, ref, torch.bfloat16)
+    assert cmp["ok"], cmp
+    res = torch.library.opcheck(
+        torch.ops.fer_vit_tpu_torch.fused_irse_residual.default,
+        tuple(args) + (stride,))
+    assert set(res.values()) == {"SUCCESS"}, res
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_attention_custom_op_matches_plain(smoke, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v = smoke.attention_inputs(torch, 4, 12, 197, 64, 5, "cuda", dt,
+                                     packed=True)
+    reset_launch_counts()
+    got = torch.ops.fer_vit_tpu_torch.fused_attention(q, k, v)
+    want = SM90 if dtype == "bfloat16" else STREAMING
+    assert fused_attention.kernel_launches[want] == 1
+    assert got.stride() == (197 * 12 * 64, 64, 12 * 64, 1)
+    cmp = smoke.compare_attention(torch, got, fused_attention_plain(q, k, v),
+                                  dt)
+    assert cmp["ok"], cmp
+    res = torch.library.opcheck(
+        torch.ops.fer_vit_tpu_torch.fused_attention.default, (q, k, v))
+    assert set(res.values()) == {"SUCCESS"}, res
+
+
+def test_exported_bf16_programs_launch_the_kernels(smoke, tmp_path):
+    """A bf16 latent predictor (a pSp of six 64-channel units) and a bf16
+    ImageViT (145 tokens, Dh 64) exported on the card and reloaded: each
+    exported batch launches the sm90 kernels (6 of K1, 2 of K2) and none
+    of the others, and answers as the live predictor bit for bit."""
+    import numpy as np
+
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper, PSpEncoder
+    from fer_vit_tpu_torch.export import export_predictor
+    from fer_vit_tpu_torch.models import ImageViT, LatentViT
+    from fer_vit_tpu_torch.serve import Predictor
+
+    plan = ((64, 64, 1), (64, 64, 2), (64, 64, 2), (64, 64, 1))
+    psp = EncoderWrapper(seed=0, encoder=PSpEncoder(
+        plan=plan, input_size=32, style_dim=64, fuse_bn=True,
+        fused_residual=True))
+    latent = Predictor(LatentViT(latent_dim=64, embed_dim=64, depth=1,
+                                 heads=2, mlp_dim=128,
+                                 generator=torch.Generator().manual_seed(1)),
+                       psp=psp, batch_size=4)
+    image = Predictor(ImageViT(img_size=48, patch_size=4, embed_dim=128,
+                               depth=2, heads=2, mlp_dim=256, dropout=0.0,
+                               generator=torch.Generator().manual_seed(2)),
+                      image_route=True, batch_size=4)
+    rng = np.random.default_rng(6)
+    for name, pred, size, per_batch in (
+            ("latent", latent, 32, {fu.SM90: 6}),
+            ("image", image, 48, {SM90: 2})):
+        art = str(tmp_path / name)
+        meta = export_predictor(pred, art)
+        assert meta["platforms"] == ["cuda"]
+        reloaded = Predictor.from_exported(art)
+        for dtype in ("uint8", "float32"):
+            x = rng.integers(0, 256, (6, size, size, 3)).astype(dtype)
+            want = pred.predict(x)
+            fu.reset_launch_counts()
+            reset_launch_counts()
+            got = reloaded.predict(x)
+            torch.cuda.synchronize()
+            counts = {**fu.fused_irse_residual.kernel_launches,
+                      **fused_attention.kernel_launches}
+            expected = {k: 2 * per_batch.get(k, 0) for k in counts}
+            assert counts == expected, (name, dtype, counts)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])

@@ -301,3 +301,76 @@ def test_chip_smoke_psp_tree_unchanged_by_the_shared_trunk():
     for (_, a), (_, b) in zip(flat(psp["batch_stats"]["backbone"]),
                               flat(bbs)):
         np.testing.assert_array_equal(a, b)
+
+
+def test_scaleout_modules_import_with_jax_blocked():
+    """The serving and scale-out slice's modules: the export, the mesh, the
+    process groups and the console entry points."""
+    mods = ["fer_vit_tpu_torch.export", "fer_vit_tpu_torch.cli",
+            "fer_vit_tpu_torch.core.mesh", "fer_vit_tpu_torch.core.distributed",
+            "fer_vit_tpu_torch.serve"]
+    assert set(mods) <= set(_modules())
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['fer_vit_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import fer_vit_tpu_torch.cli as cli\n"
+        "assert len(cli.COMMANDS) == 17\n"
+        "print('IMPORTED')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "IMPORTED" in res.stdout
+
+
+def test_scaleout_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
+    """export, reload, the server's CLI, the mesh and the process group
+    default to CUDA and raise without it, before anything is read; each
+    runs on the CPU when asked."""
+    from fer_vit_tpu_torch import export
+    from fer_vit_tpu_torch.core import distributed
+    from fer_vit_tpu_torch.core.mesh import make_mesh, visible_devices
+    from fer_vit_tpu_torch.models import ImageViT
+    from fer_vit_tpu_torch.serve import (Predictor, build_serve_parser,
+                                         make_server, serve_main)
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    missing = str(tmp_path / "missing")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.load_exported(missing)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Predictor.from_exported(missing)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export.main(export.build_parser().parse_args(
+            ["--checkpoint_path", missing, "--output", missing]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_main(build_serve_parser().parse_args(
+            ["--checkpoint_path", missing]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        visible_devices()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distributed.initialize("127.0.0.1:1", 2, 0)
+    assert not torch.distributed.is_initialized()
+    # asked for the CPU
+    assert make_mesh(devices=["cpu"]).shape == {"data": 1, "model": 1}
+    pred = Predictor(ImageViT(img_size=32, patch_size=8, embed_dim=16,
+                              depth=1, heads=2, mlp_dim=32),
+                     image_route=True, batch_size=2, device="cpu")
+    meta = export.export_predictor(pred, str(tmp_path / "art"),
+                                   input_dtypes=["uint8"])
+    assert meta["platforms"] == ["cpu"]
+    assert Predictor.from_exported(str(tmp_path / "art"),
+                                   device="cpu").device.type == "cpu"
+    srv = make_server(pred, port=0)
+    try:
+        assert srv.batcher.predictor is pred
+    finally:
+        srv.batcher.close()
+        srv.server_close()
