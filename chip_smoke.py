@@ -5,7 +5,9 @@
 
 Phases, in order; any failure exits non-zero before the result line:
 
-1. device: the card's name and power limit (``nvidia-smi``), then the build
+1. device: the card's name and power limit (``nvidia-smi``), the first CUDA
+   calls under the device-init watchdog (a hung init ends the run with
+   code 2; ``fer_vit_tpu_torch.utils.watchdog``), then the build
    of every kernel from ``fer_vit_tpu_torch/csrc`` with nvcc for sm_90a, with
    its build time and the registers, shared memory and spills ptxas reports.
 2. kernels: each kernel against its plain PyTorch version on the card, at the
@@ -142,6 +144,23 @@ Phases, in order; any failure exits non-zero before the result line:
    card equal to one device. ``train_latent_vit`` for 3 steps without a
    process group and under a one-rank ``nccl`` group (the data-parallel
    path with its collectives): the same parameters and logged losses.
+12. study options and the two-platform artifact, after phase 11: the
+   full-width seeded pSp in bf16 built through ``EncoderWrapper`` as the
+   direct unfused trunk, with ``s2_mode`` "s2d" and "poly", with
+   ``fold_bn1``, as the K1 trunk, and as the K1 trunk with int8 taps
+   (``act_quant_min_hw`` 64, calibrated by ``calibrate_act_quant``): one
+   batch of 16 through ``encode_batch`` per variant with the counts read
+   (24 ``fused_irse_unit_sm90`` launches on the K1 trunks, none on the
+   others), w+ against the CPU's f32 direct encoder (the int8 trunk: its
+   own f32 CPU run with the card's scales, in bf16 and in f32, and the
+   unquantized trunk within the JAX package's band), ms per batch at 16
+   and 256 by CUDA events, peak memory at 256, the top device ops of one
+   int8-trunk forward by ``torch.profiler`` through
+   ``fer_vit_tpu_torch.utils.profile``; then phase 7's seeded checkpoints
+   exported by the export CLI with ``--platforms cuda cpu`` (batch 2,
+   uint8), loaded in a fresh process on the card and on the CPU: bit for
+   bit the live predictor on each, 24 K1 or 12 K2 launches per batch on
+   the card and none on the CPU.
 
 Both slices run at full width with random weights, made from a seed in the
 JAX package's layout and carried over by the port's bridge. Each serves
@@ -157,10 +176,11 @@ Each phase's wall seconds are logged as it ends. Before the kernels line,
 a JSON line gives the launches per kernel on each main path (the two
 serving slices, production, latent training, image training, checkpoint
 serving, each zoo run and the zoo's serving, latent eval, image eval,
-export, analysis, the single-image predictor, the AFS paths, and phase 11's
-HTTP, bulk, exported, mesh and training paths), phase
+export, analysis, the single-image predictor, the AFS paths, phase 11's
+HTTP, bulk, exported, mesh and training paths, and phase 12's study
+variants and two-platform artifact halves), phase
 5's batches and images, the zoo runs' steps/s, phase 9's rates and
-seconds, phase 10's readings, and the phase seconds. The line
+seconds, phase 10's, 11's and 12's readings, and the phase seconds. The line
 before the last is a JSON object listing the four kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
 ``flash_attention``) with their launches summed over the main paths, times,
@@ -330,9 +350,18 @@ def phase_device(torch) -> dict:
           f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    from fer_vit_tpu_torch.utils.watchdog import arm_device_init_watchdog
+
+    # the first calls that touch the card: a hung init ends the run (rc 2)
+    watchdog = arm_device_init_watchdog()
+    t0 = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
+    torch.zeros(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    watchdog.cancel()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
-        f"count {torch.cuda.device_count()}")
+        f"count {torch.cuda.device_count()}; device init "
+        f"{time.perf_counter() - t0:.1f} s under the watchdog")
 
     from fer_vit_tpu_torch.ops import _build
 
@@ -990,12 +1019,15 @@ def main() -> int:
         afs = timed("10 AFS", phase_afs, torch, dev_info, root)
         scaleout = timed("11 serving and scale-out", phase_scaleout, torch,
                          dev_info, root)
+        study = timed("12 study options and the two-platform artifact",
+                      phase_study, torch, dev_info, root)
     paths.update({"production": prod["production"]["launches"],
                   "latent training": prod["training"]["launches"],
                   "image training": image["launches"],
                   "checkpoint serving": serving["launches"],
                   **zoo["launches"], **evals["launches"],
-                  **afs["launches"], **scaleout["launches"]})
+                  **afs["launches"], **scaleout["launches"],
+                  **study["launches"]})
     launches = {name: sum(p[name] for p in paths.values())
                 for name in KERNEL_META}
     print(json.dumps({"launches_by_path": paths,
@@ -1010,6 +1042,8 @@ def main() -> int:
                               if k != "launches"},
                       "scaleout": {k: v for k, v in scaleout.items()
                                    if k != "launches"},
+                      "study": {k: v for k, v in study.items()
+                                if k != "launches"},
                       "phase_seconds": seconds}))
     print(json.dumps({"kernels": [kernel_entry(name, k, launches)
                                   for name, k in kernels.items()]}))
@@ -4451,6 +4485,315 @@ def phase_scaleout(torch, dev_info, root: Path) -> dict:
           and loose <= 1e-3 * total and dl <= DET_BF16_LOSS_RTOL,
           "train_latent_vit under a one-rank nccl group parts from the run "
           "without a group")
+    return out
+
+
+# -- phase 12: study options and the two-platform artifact ---------------------
+
+# The trunk's study options on the full-width seeded pSp (bf16): the direct
+# unfused trunk, its stride-2 rewrites "s2d" and "poly", fold_bn1 (all
+# unfused: no kernel), the K1 trunk, and the K1 trunk with int8 taps on the
+# tensors of side >= 64, calibrated on the batch of 16. Each exact
+# variant's w+ is held to the CPU's f32 direct encoder on 2 images within
+# the latent slice's bf16 limit (BF16_W_RTOL, phase 3). The int8 trunk is
+# held to its own f32 CPU run with the card's scales: run in f32 on the card
+# (K1's f32 kernel) within that limit, and in bf16 within
+# STUDY_AQ_BF16_W_RTOL: int8 rounding turns bf16's noise into whole int8
+# steps wherever an element lies near a half step (read 3.46e-2 on an
+# H100, against 1.12e-2 for the exact K1 trunk), so that limit is the
+# quantization's own budget, the JAX package's band. And the int8 trunk is held to the unquantized K1 trunk on
+# the card within that band (relative max |dw| < 0.05,
+# tests/test_act_quant.py).
+STUDY_BATCHES = (16, 256)
+STUDY_REPS = {16: 10, 256: 2}
+STUDY_AQ_MIN_HW = 64
+STUDY_AQ_BAND = 0.05
+STUDY_AQ_BF16_W_RTOL = STUDY_AQ_BAND
+STUDY_CPU_IMAGES = 2
+STUDY_VARIANTS = (
+    ("direct", dict(fused_residual=False)),
+    ("s2d", dict(fused_residual=False, s2_mode="s2d")),
+    ("poly", dict(fused_residual=False, s2_mode="poly")),
+    ("fold_bn1", dict(fused_residual=False, fold_bn1=True)),
+    ("K1", {}),
+    ("K1 act_quant", dict(act_quant_min_hw=STUDY_AQ_MIN_HW)),
+)
+STUDY_TOP_OPS = 8
+# the two-platform artifact: phase 7's seeded checkpoints exported with
+# --platforms cuda cpu at a batch that keeps the CPU half short, on 4 of
+# phase 11's decoded inputs
+ARTIFACT2_BATCH = 2
+ARTIFACT2_IMAGES = 4
+
+_ARTIFACT2_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from fer_vit_tpu_torch.ops import flash_attention, fused_irse_unit
+from fer_vit_tpu_torch.serve import Predictor
+
+out = {}
+for route, art, images in json.loads(sys.argv[1]):
+    x = np.load(images)
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        pred = Predictor.from_exported(art, device=device)
+        load_s = time.perf_counter() - t0
+        fused_irse_unit.reset_launch_counts()
+        flash_attention.reset_launch_counts()
+        t0 = time.perf_counter()
+        labels, probs = pred.predict(x)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = {**fused_irse_unit.fused_irse_residual.kernel_launches,
+                  **flash_attention.fused_attention.kernel_launches}
+        np.save(f"{images[:-4]}_{device}_probs.npy", probs)
+        np.save(f"{images[:-4]}_{device}_labels.npy", labels)
+        out[f"{route} {device}"] = {"launches": counts, "load_s": load_s,
+                                    "images_per_s": len(x) / run_s}
+        del pred
+bad = [m for m in sys.modules if m.startswith(
+    ("fer_vit_tpu_torch.models", "fer_vit_tpu_torch.encoders"))]
+print(json.dumps({"runs": out, "model_modules": bad}))
+"""
+
+
+def study_variants(torch, dev_info, psp_sd, imgs) -> dict:
+    """Each study variant built through ``EncoderWrapper`` on the card: one
+    forward of the batch of 16 through ``encode_batch`` with the counts set
+    to 0 just before it and read just after; w+ against the CPU; ms per
+    batch at 16 and 256 by CUDA events and peak memory at 256."""
+    from fer_vit_tpu_torch.encoders.psp import (EncoderWrapper,
+                                                calibrate_act_quant,
+                                                preprocess_images)
+
+    small = imgs[:STUDY_CPU_IMAGES]
+    t0 = time.perf_counter()
+    cpu_direct = EncoderWrapper(psp_sd, dtype=torch.float32, device="cpu",
+                                fused_residual=False)
+    w_ref = cpu_direct.encode_batch(small)
+    del cpu_direct
+    log(f"study: CPU f32 direct encoder on {STUDY_CPU_IMAGES} images in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def rel(w, ref):
+        return float((w.cpu() - ref).norm() / ref.norm())
+
+    out = {"launches": {}, "ms": {}, "peak_gib": {}, "w_rel": {}}
+    w16 = {}
+    for name, kw in STUDY_VARIANTS:
+        enc = EncoderWrapper(psp_sd, **kw)
+        if "act_quant_min_hw" in kw:
+            scales = calibrate_act_quant(enc.encoder, imgs[:16])
+            log(f"study {name}: {len(scales)} taps calibrated on 16 images,"
+                f" scales {min(float(v) for v in scales.values()):.4g} to "
+                f"{max(float(v) for v in scales.values()):.4g}")
+        enc.encode_batch(imgs[:16])  # warm
+        torch.cuda.synchronize()
+        # the path: one batch of 16 through the wrapper's entry point
+        reset_kernel_counts()
+        w = enc.encode_batch(imgs[:16])
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        want = dict.fromkeys(KERNEL_META, 0)
+        if name.startswith("K1"):
+            want[K1_SM90] = 24
+        check(counts == want, f"study {name}: launches {counts}, expected "
+              f"{want}")
+        check(w.shape == (16, 18, 512) and bool(torch.isfinite(w).all()),
+              f"study {name}: w+ {tuple(w.shape)} or not finite")
+        out["launches"][f"study {name}"] = counts
+        w16[name] = w
+        dw = rel(w[:STUDY_CPU_IMAGES], w_ref)
+        out["w_rel"][name] = dw
+        if "act_quant_min_hw" not in kw:
+            check(dw <= BF16_W_RTOL, f"study {name}: w+ relative L2 error "
+                  f"{dw:.3e} against the CPU's f32 direct encoder (tol "
+                  f"{BF16_W_RTOL})")
+        ms = {}
+        with torch.inference_mode():
+            for b in STUDY_BATCHES:
+                x = preprocess_images(torch.from_numpy(imgs[:b]).cuda(),
+                                      size=256)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                ms[b] = time_ms(torch, lambda: enc.encoder(x),
+                                reps=STUDY_REPS[b], warmup=1)
+                if b == max(STUDY_BATCHES):
+                    out["peak_gib"][name] = (torch.cuda.max_memory_allocated()
+                                             - base) / 2**30
+                del x
+        out["ms"][name] = ms
+        log(f"study {name} on {dev_info['card']}: launches {counts}; w+ "
+            f"relative L2 error against the CPU's f32 direct encoder "
+            f"{dw:.3e}; ms per batch " + ", ".join(
+                f"{b}: {v:.3f}" for b, v in ms.items())
+            + f"; peak {out['peak_gib'][name]:.2f} GiB above the weights at "
+            f"{max(STUDY_BATCHES)}")
+        if "act_quant_min_hw" in kw:
+            aq_enc = enc
+        else:
+            del enc
+        torch.cuda.empty_cache()
+
+    # the int8 trunk: against its own f32 CPU run (the card's scales), on
+    # the card in bf16 and in f32, and against the unquantized K1 trunk
+    # within JAX's band
+    scales = {k: v.cpu() for k, v in aq_enc.encoder.state_dict().items()
+              if "aq_" in k}
+    own = {}
+    for name, dtype, device in (("cpu", torch.float32, "cpu"),
+                                ("card f32", torch.float32, None)):
+        e = EncoderWrapper(psp_sd, dtype=dtype, device=device,
+                           act_quant_min_hw=STUDY_AQ_MIN_HW)
+        e.encoder.load_state_dict(scales, strict=False)
+        own[name] = e.encode_batch(small).cpu()
+        del e
+    dw_aq = rel(w16["K1 act_quant"][:STUDY_CPU_IMAGES], own["cpu"])
+    dw_aq32 = rel(own["card f32"], own["cpu"])
+    w_q, w_k1 = w16["K1 act_quant"].float(), w16["K1"].float()
+    band = float((w_q - w_k1).abs().max() / w_k1.abs().max())
+    out["aq_vs_own_cpu"] = {"bf16": dw_aq, "f32": dw_aq32}
+    out["aq_band"] = band
+    log(f"study K1 act_quant: w+ relative L2 error against its own f32 CPU "
+        f"run, card bf16 {dw_aq:.3e} (tol {STUDY_AQ_BF16_W_RTOL}), card f32 "
+        f"{dw_aq32:.3e} (tol {BF16_W_RTOL}); against the unquantized K1 "
+        f"trunk on the card relative max |dw| {band:.4f} (JAX's band "
+        f"{STUDY_AQ_BAND})")
+    check(dw_aq <= STUDY_AQ_BF16_W_RTOL and dw_aq32 <= BF16_W_RTOL,
+          "study K1 act_quant: the card parts from its own f32 CPU run")
+    check(0 < band < STUDY_AQ_BAND, "study K1 act_quant: outside JAX's band "
+          "of the unquantized trunk")
+
+    # device ops of one int8-trunk forward at 16, by torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    from fer_vit_tpu_torch.utils.profile import device_op_totals
+
+    with torch.inference_mode():
+        x = preprocess_images(torch.from_numpy(imgs[:16]).cuda(), size=256)
+        aq_enc.encoder(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            aq_enc.encoder(x)
+            torch.cuda.synchronize()
+    totals = device_op_totals(prof)
+    busy = sum(totals.values())
+    check(busy > 0, "study: the profiler saw no device time")
+    top = list(totals.items())[:STUDY_TOP_OPS]
+    out["profile_device_ms"] = busy
+    out["profile_top"] = [[k[:120], v] for k, v in top]
+    log(f"study K1 act_quant at 16: {len(totals)} device ops, "
+        f"{busy:.3f} ms of device time; top: " + "; ".join(
+            f"{k[:120]} {v:.3f} ms" for k, v in top))
+    return out
+
+
+def artifact2(torch, dev_info, root: Path) -> dict:
+    """Phase 7's seeded checkpoints exported by the export CLI with
+    ``--platforms cuda cpu``, loaded in a fresh process on each device and
+    held bit for bit to the live predictor there."""
+    from fer_vit_tpu_torch import export
+    from fer_vit_tpu_torch.serve import Predictor
+
+    out = {"launches": {}}
+    arts, live = [], {}
+    n_batches = -(-ARTIFACT2_IMAGES // ARTIFACT2_BATCH)
+    for route in ("latent", "image"):
+        ckpt = str(root / f"seeded_{route}.pt")
+        extra = (["--psp_weights", str(root / "psp_seeded.npz")]
+                 if route == "latent" else [])
+        art = root / f"artifact2_{route}"
+        t0 = time.perf_counter()
+        meta = export.main(export.build_parser().parse_args(
+            ["--checkpoint_path", ckpt, *extra, "--output", str(art),
+             "--batch_size", str(ARTIFACT2_BATCH), "--platforms", "cuda",
+             "cpu", "--input_dtypes", "uint8"]))
+        export_s = time.perf_counter() - t0
+        files = sorted(f.name for f in art.iterdir())
+        check(meta["platforms"] == ["cuda", "cpu"] and files == [
+            "meta.json", "predict_fn_cpu_uint8.pt2",
+            "predict_fn_cuda_uint8.pt2", "weights.pt"],
+            f"artifact {route}: platforms {meta['platforms']}, files {files}")
+        x = np.load(root / f"export_in_{route}.npy")[:ARTIFACT2_IMAGES]
+        images = root / f"artifact2_in_{route}.npy"
+        np.save(images, x)
+        for device in ("cuda", "cpu"):
+            pred = Predictor.from_checkpoint(
+                ckpt, psp_weights=extra[1] if extra else None,
+                batch_size=ARTIFACT2_BATCH, device=device)
+            live[(route, device)] = pred.predict(x)
+            del pred
+        out[f"artifact {route}"] = {"export_s": export_s, "bytes": sum(
+            f.stat().st_size for f in art.iterdir())}
+        log(f"artifact {route}: exported for {meta['platforms']} at batch "
+            f"{ARTIFACT2_BATCH} in {export_s:.1f} s ("
+            + ", ".join(f"{f.name} {f.stat().st_size / 2**20:.1f} MiB"
+                        for f in sorted(art.iterdir())) + ")")
+        arts.append((route, str(art), str(images)))
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _ARTIFACT2_WORKER,
+                           json.dumps(arts)], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"the two-platform artifacts failed in a "
+          f"fresh process: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(res["model_modules"] == [], "the artifacts' process imported model "
+          f"code: {res['model_modules']}")
+    log(f"artifact: the fresh process took {time.perf_counter() - t0:.1f} s")
+    for route, per_batch in (("latent", {K1_SM90: 24}),
+                             ("image", {"flash_attention_sm90": 12})):
+        for device in ("cuda", "cpu"):
+            r = res["runs"][f"{route} {device}"]
+            stem = root / f"artifact2_in_{route}_{device}"
+            labels = np.load(f"{stem}_labels.npy")
+            probs = np.load(f"{stem}_probs.npy")
+            l_live, p_live = live[(route, device)]
+            want = {k: (per_batch.get(k, 0) * n_batches
+                        if device == "cuda" else 0) for k in KERNEL_META}
+            same = (np.array_equal(labels, l_live)
+                    and np.array_equal(probs, p_live))
+            log(f"artifact {route} on {device}: loaded in {r['load_s']:.1f} "
+                f"s, {r['images_per_s']:.2f} images/s on {ARTIFACT2_IMAGES} "
+                f"images (the first call included); bit for bit the live "
+                f"predictor's {same} (max |dprob| "
+                f"{float(np.abs(probs - p_live).max()):.3e}); launches "
+                f"{r['launches']} for {n_batches} batches")
+            check(same, f"artifact {route} on {device}: the exported program "
+                  f"differs from the live predictor there")
+            check(r["launches"] == want, f"artifact {route} on {device}: "
+                  f"launches {r['launches']}, expected {want}")
+            out["launches"][f"artifact {route} {device}"] = r["launches"]
+            out[f"artifact {route}"][f"{device}_images_per_s"] = r[
+                "images_per_s"]
+    return out
+
+
+def phase_study(torch, dev_info, root: Path) -> dict:
+    """The trunk's study options at full width, then the two-platform
+    artifact of phase 7's seeded checkpoints (after phase 11, whose decoded
+    inputs it reuses)."""
+    from fer_vit_tpu_torch.encoders.folding import fold_psp_state_dict
+    from fer_vit_tpu_torch.interop.from_jax import psp_state_dict_from_jax
+
+    # folded once: the wrapper's fold passes a folded state dict through
+    psp_sd = fold_psp_state_dict(psp_state_dict_from_jax(psp_jax_variables()))
+    imgs = np.random.default_rng(12).integers(
+        0, 256, (max(STUDY_BATCHES), 256, 256, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    out = study_variants(torch, dev_info, psp_sd, imgs)
+    t1 = time.perf_counter()
+    art = artifact2(torch, dev_info, root)
+    out["seconds"] = {"study": t1 - t0,
+                      "artifact": time.perf_counter() - t1}
+    log(f"phase 12: study variants {out['seconds']['study']:.1f} s, "
+        f"two-platform artifact {out['seconds']['artifact']:.1f} s")
+    out["launches"].update(art.pop("launches"))
+    out.update(art)
     return out
 
 

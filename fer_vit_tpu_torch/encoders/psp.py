@@ -15,7 +15,11 @@ pixel2style2pixel ``GradualStyleEncoder``):
 Parameters carry the third-party names (``input_layer.*``, ``body.*``,
 ``styles.{k}.convs.{2j}``, ``styles.{k}.linear``, ``latlayer1/2``) plus the
 ``latent_avg`` buffer. The heads run one after another (the JAX package
-vmaps them over a stacked head axis).
+vmaps them over a stacked head axis). The trunk's study options
+(``s2_mode``, ``fold_bn1``, ``act_quant_min_hw``; see
+:mod:`fer_vit_tpu_torch.encoders.irse`) pass through :class:`PSpEncoder` and
+:class:`EncoderWrapper`; :func:`calibrate_act_quant` sets the int8 taps'
+scales.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from torch import nn
 from fer_vit_tpu_torch.core.dtypes import (DeviceLike, cast_once,
                                            compute_dtype, resolve_device)
 from fer_vit_tpu_torch.encoders.folding import fold_psp_state_dict
-from fer_vit_tpu_torch.encoders.irse import (IR_SE_50_PLAN, IRSEBackbone,
-                                             conv_nhwc)
+from fer_vit_tpu_torch.encoders.irse import (IR_SE_50_PLAN, ActQuant,
+                                             IRSEBackbone, conv_nhwc)
 from fer_vit_tpu_torch.interop.from_jax import (load_npz_variables,
                                                 psp_state_dict_from_jax)
 
@@ -125,15 +129,18 @@ class PSpEncoder(IRSEBackbone):
                  middle_ind: int = 7, style_dim: int = 512,
                  plan=IR_SE_50_PLAN, input_size: int = 256, *,
                  fuse_bn: bool = False, fused_residual: bool = False,
+                 s2_mode: str = "direct", fold_bn1: bool = False,
+                 act_quant_min_hw: int = 0,
                  dtype: Optional[torch.dtype] = None):
         t1 = plan[0][2] + plan[1][2] - 1
         super().__init__(plan, (t1, t1 + plan[2][2]), fuse_bn=fuse_bn,
-                         fused_residual=fused_residual)
+                         fused_residual=fused_residual, s2_mode=s2_mode,
+                         fold_bn1=fold_bn1, act_quant_min_hw=act_quant_min_hw,
+                         input_size=input_size)
         self.n_styles = n_styles
         self.coarse_ind = coarse_ind
         self.middle_ind = middle_ind
         self.style_dim = style_dim
-        self.input_size = input_size
         self.dtype = dtype
         fpn = plan[-1][1]  # 512 for ir_se50
         s16 = input_size // 16
@@ -235,6 +242,35 @@ def preprocess_images(images: torch.Tensor, size: int = 256) -> torch.Tensor:
     return (resize_images(to_unit_floats(images), size) - 0.5) / 0.5
 
 
+def calibrate_act_quant(encoder: PSpEncoder, sample_images,
+                        margin: float = 1.1) -> Dict[str, torch.Tensor]:
+    """One calibration forward for the int8 taps of an encoder built with
+    ``act_quant_min_hw``: ``sample_images`` (B, H, W, 3), preprocessed to the
+    encoder's input size, run through it on its device with every tap
+    recording ``max|x| / 127``; each scale is then multiplied by ``margin``.
+    Sets the taps' ``scale`` buffers in place (so the state dict carries
+    them) and returns them by state-dict key."""
+    taps = {name: m for name, m in encoder.named_modules()
+            if isinstance(m, ActQuant)}
+    if not taps:
+        raise ValueError("the encoder has no act-quant taps: build it with "
+                         "act_quant_min_hw > 0")
+    x = torch.as_tensor(np.asarray(sample_images)).to(
+        encoder.latent_avg.device)
+    for m in taps.values():
+        m.calibrating = True
+    try:
+        with torch.no_grad():
+            encoder(preprocess_images(x, size=encoder.input_size))
+    finally:
+        for m in taps.values():
+            m.calibrating = False
+    with torch.no_grad():
+        for m in taps.values():
+            m.scale.mul_(margin)
+    return {f"{name}.scale": m.scale for name, m in taps.items()}
+
+
 class EncoderWrapper:
     """Inference wrapper: holds an eval-mode :class:`PSpEncoder` on a device
     and runs preprocess -> encode.
@@ -247,32 +283,51 @@ class EncoderWrapper:
     trunk unit's residual branch through the fused kernel. ``dtype`` is the
     compute dtype (None: bf16 on CUDA, f32 on the CPU). ``device`` defaults
     to CUDA and raises when there is none; pass ``device="cpu"`` for the CPU.
+
+    The trunk's study options: ``s2_mode`` ("direct", "s2d" or "poly"; the
+    unfused path's stride-2 conv), ``fold_bn1`` (bn1 folded into conv1 at
+    load time; needs ``fold_bn`` and ``fused_residual=False``) and
+    ``act_quant_min_hw`` (int8 taps; a state dict without their scales
+    loads with the scales at 1, to be set by :func:`calibrate_act_quant`).
     """
 
     def __init__(self, state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  *, seed: int = 0, dtype: Optional[torch.dtype] = None,
                  encoder: Optional[PSpEncoder] = None, fold_bn: bool = True,
-                 fused_residual: bool = True, device: DeviceLike = None):
+                 fused_residual: bool = True, s2_mode: str = "direct",
+                 fold_bn1: bool = False, act_quant_min_hw: int = 0,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         if fused_residual and not fold_bn:
             raise ValueError("fused_residual requires fold_bn=True")
+        if fold_bn1 and not fold_bn:
+            raise ValueError("fold_bn1 requires fold_bn=True")
+        if fold_bn1 and fused_residual:
+            raise ValueError(
+                "fold_bn1 and fused_residual are mutually exclusive (the "
+                "fused kernel consumes the intact bn1 variables): pass "
+                "fused_residual=False")
         if encoder is None:
             encoder = PSpEncoder(fuse_bn=fold_bn,
-                                 fused_residual=fused_residual, dtype=dtype)
+                                 fused_residual=fused_residual,
+                                 s2_mode=s2_mode, fold_bn1=fold_bn1,
+                                 act_quant_min_hw=act_quant_min_hw,
+                                 dtype=dtype)
         self.encoder = encoder
         if state_dict is None:
             init_psp_parameters_(encoder, torch.Generator().manual_seed(seed))
         else:
             sd = dict(state_dict)
-            if encoder.fuse_bn and "input_layer.1.running_var" in sd:
-                sd = fold_psp_state_dict(sd)
-            encoder.load_state_dict(sd, strict=True)
+            if encoder.fuse_bn:
+                sd = fold_psp_state_dict(sd, fold_bn1=encoder.fold_bn1)
+            _load_with_default_scales(encoder, sd)
         encoder.to(self.device).eval().requires_grad_(False)
 
     @classmethod
     def from_npz(cls, path: str, **kwargs) -> "EncoderWrapper":
-        """Load the JAX package's converted pSp weights
-        (``fer_vit_tpu/encoders/convert_psp.py`` writes the ``.npz``)."""
+        """Load converted pSp weights in the JAX package's ``.npz`` layout
+        (``python -m fer_vit_tpu_torch.encoders.convert_psp psp.pt
+        out.npz`` writes one)."""
         return cls(psp_state_dict_from_jax(load_npz_variables(path)),
                    **kwargs)
 
@@ -288,24 +343,47 @@ class EncoderWrapper:
         return self.encode_batch(torch.as_tensor(image)[None])[0]
 
 
-def psp_state_dict_from_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A pSp ``.pt`` checkpoint's encoder as an unfused :class:`PSpEncoder`
-    state dict: its ``encoder.*`` entries (under ``state_dict`` or at the
-    top level) with the prefix dropped, and its ``latent_avg``, tiled to
-    (n_styles, D) when it is one (D,) vector and zeros when absent, as
-    ``fer_vit_tpu/encoders/convert_psp.py::convert_checkpoint`` reads it.
-    The port's modules carry the third-party names, so nothing is renamed."""
+def _load_with_default_scales(encoder: PSpEncoder,
+                              sd: Mapping[str, torch.Tensor]) -> None:
+    """``encoder.load_state_dict(sd)``, strict but for the int8 taps'
+    scales, which keep their values (1 until calibrated) when ``sd`` has
+    none."""
+    missing, unexpected = encoder.load_state_dict(sd, strict=False)
+    taps = {f"{name}.scale" for name, m in encoder.named_modules()
+            if isinstance(m, ActQuant)}
+    if unexpected or set(missing) - taps:
+        raise RuntimeError(
+            f"pSp state dict does not fit the encoder: missing "
+            f"{sorted(set(missing) - taps)[:8]}, unexpected "
+            f"{sorted(unexpected)[:8]}")
+
+
+def read_psp_checkpoint(path: str):
+    """A pSp ``.pt`` checkpoint -> (its ``encoder.*`` entries, under
+    ``state_dict`` or at the top level, with the prefix dropped and floats
+    in f32; its ``latent_avg`` in f32, or None)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     raw = ckpt.get("state_dict", ckpt)
     sd = {k[len("encoder."):]: v.float() if v.is_floating_point() else v
           for k, v in raw.items() if k.startswith("encoder.")}
+    latent_avg = ckpt.get("latent_avg")
+    return sd, None if latent_avg is None else latent_avg.float()
+
+
+def psp_state_dict_from_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A pSp ``.pt`` checkpoint's encoder as an unfused :class:`PSpEncoder`
+    state dict: :func:`read_psp_checkpoint`'s entries and its
+    ``latent_avg``, tiled to (n_styles, D) when it is one (D,) vector and
+    zeros when absent, both sized from the checkpoint's heads. (The
+    converter CLI writes the reference's (18, D) tiling and (18, 512)
+    zeros instead.) The port's modules carry the third-party names, so
+    nothing is renamed."""
+    sd, latent_avg = read_psp_checkpoint(path)
     n_styles = 1 + max(int(k.split(".")[1]) for k in sd
                        if k.startswith("styles."))
-    latent_avg = ckpt.get("latent_avg")
     if latent_avg is None:
         latent_avg = torch.zeros(n_styles,
                                  sd["styles.0.linear.weight"].shape[0])
-    latent_avg = latent_avg.float()
     if latent_avg.dim() == 1:
         latent_avg = latent_avg[None].repeat(n_styles, 1)
     sd["latent_avg"] = latent_avg

@@ -17,9 +17,13 @@ Artifact layout (one directory)::
                              arguments, not constants, so the programs hold
                              none and a fine-tuned weights file can be
                              swapped in without a new export
+    predict_fn_<platform>_<dtype>.pt2
+                             the same, one per platform, when the artifact
+                             holds more than one platform's programs
     weights.pt               the weights: one state dict per part,
                              (encoder, classifier) or (classifier,), read
-                             with ``weights_only=True``
+                             with ``weights_only=True``; shared by every
+                             program
     meta.json                route, shapes, classes, platforms, versions
 
 Design notes:
@@ -31,9 +35,17 @@ Design notes:
   ``Predictor.predict`` pads any request count to the batch, so the pin
   costs nothing at run time, and ``Predictor.from_exported`` refuses other
   dtypes.
-- ``platforms`` is the device type the program was traced on, ``cuda`` or
-  ``cpu``: an artifact runs only there, since device placement and the
-  compute dtype (bf16 on CUDA) are fixed in the trace.
+- ``platforms`` lists the device types the programs were traced on,
+  ``cuda``, ``cpu`` or both (the counterpart of the JAX export's platform
+  list): device placement is fixed in a trace, so each platform has its own
+  programs, and ``load_exported`` picks those of its device. Each is
+  traced on a twin of the predictor's function on that device: the same
+  weights, the same compute-dtype setting (None resolves to each device's
+  own, bf16 on CUDA and f32 on the CPU, as in a live predictor there) and
+  the same batch. The kernels are custom ops, so the cuda programs launch
+  the hand-written kernels and the cpu programs run their CPU
+  implementations. A platform this process cannot trace (``cuda`` without
+  a card) is refused, not dropped.
 - The live predictor casts its frozen weights to the compute dtype and
   K1's layout once (``core.dtypes.cast_once``); in the exported program
   the weights are arguments, so those casts run on every call.
@@ -52,6 +64,7 @@ import numpy as np
 import torch
 
 FORMAT_VERSION = 1
+PLATFORMS = ("cuda", "cpu")
 _FN_FILE_TMPL = "predict_fn_{dtype}.pt2"
 _WEIGHTS_FILE = "weights.pt"
 _META_FILE = "meta.json"
@@ -71,13 +84,58 @@ class _Exportable(torch.nn.Module):
         return self.fn.functional(weights, images)
 
 
+def _program_file(platforms: Sequence[str], platform: str,
+                  dtype: str) -> str:
+    """A program's file: one platform keeps the one-platform layout."""
+    if len(platforms) == 1:
+        return _FN_FILE_TMPL.format(dtype=dtype)
+    return f"predict_fn_{platform}_{dtype}.pt2"
+
+
+def _check_platforms(platforms: Sequence[str]) -> None:
+    if not platforms or len(set(platforms)) != len(platforms):
+        raise ValueError(f"platforms must name distinct device types, got "
+                         f"{list(platforms)}")
+    for p in platforms:
+        if p not in PLATFORMS:
+            raise ValueError(f"unknown platform {p!r}: choose from "
+                             f"{list(PLATFORMS)}")
+        if p == "cuda" and not torch.cuda.is_available():
+            raise ValueError(
+                "cannot trace the 'cuda' programs: CUDA is not available in "
+                "this process. Export on a machine with a card, or pass "
+                "--platforms cpu")
+
+
+def _twin(predictor, platform: str):
+    """The predictor's function on ``platform``: itself on its own device
+    type, else a copy of it moved there."""
+    from fer_vit_tpu_torch.serve import _replica
+
+    if platform == predictor.device.type:
+        return predictor._fn
+    return _replica(predictor._fn, torch.device(platform))
+
+
+def _check_devices(program, platform: str) -> None:
+    """A program traced for ``platform`` holds tensors on that device type
+    and the CPU only: none of another device leaked into the trace."""
+    devices = {leaf.device.type
+               for node in program.graph_module.graph.nodes
+               for leaf in torch.utils._pytree.tree_leaves(
+                   node.meta.get("val"))
+               if isinstance(leaf, torch.Tensor)}
+    if not devices <= {platform, "cpu"}:
+        raise RuntimeError(f"the {platform} program holds tensors on "
+                           f"{sorted(devices)}")
+
+
 def export_predictor(predictor, out_dir: str, *,
                      platforms: Optional[Sequence[str]] = None,
                      input_dtypes: Sequence = DEFAULT_INPUT_DTYPES) -> dict:
-    """Writes ``predictor``'s programs, one per dtype in ``input_dtypes``,
-    and its weights to ``out_dir``; returns the meta dict written. The
-    programs run on the predictor's device type; ``platforms``, when
-    given, must name exactly that one."""
+    """Writes ``predictor``'s programs, one per platform in ``platforms``
+    (default: the predictor's device type) and dtype in ``input_dtypes``,
+    and its weights to ``out_dir``; returns the meta dict written."""
     if getattr(predictor, "mesh", None) is not None:
         raise ValueError(
             "cannot export a mesh-bound Predictor: an exported program is a "
@@ -87,30 +145,30 @@ def export_predictor(predictor, out_dir: str, *,
     if getattr(predictor, "model", None) is None:
         raise ValueError("this predictor was loaded from an artifact: "
                          "export from a checkpoint instead")
-    platform = predictor.device.type
-    if platforms is not None and list(platforms) != [platform]:
-        raise ValueError(
-            f"this predictor runs on {platform!r}; an artifact holds one "
-            f"device type's programs: pass --platforms {platform}, or "
-            f"export once on each platform")
+    platforms = ([predictor.device.type] if platforms is None
+                 else list(platforms))
+    _check_platforms(platforms)
     dtypes = [np.dtype(d) for d in input_dtypes]
     if not dtypes:
         raise ValueError("input_dtypes must name at least one dtype")
 
-    fn = predictor._fn
-    weights = fn.weight_args()
-    module = _Exportable(fn)
     os.makedirs(out_dir, exist_ok=True)
     s = predictor.input_size
-    for dtype in dtypes:
-        images = torch.zeros((predictor.batch_size, s, s, 3),
-                             dtype=getattr(torch, dtype.name),
-                             device=predictor.device)
-        program = torch.export.export(module, (weights, images))
-        if getattr(program, "example_inputs", None) is not None:
-            program.example_inputs = None  # they hold the weights
-        torch.export.save(program, os.path.join(
-            out_dir, _FN_FILE_TMPL.format(dtype=dtype.name)))
+    for platform in platforms:
+        fn = _twin(predictor, platform)
+        module, twin_weights = _Exportable(fn), fn.weight_args()
+        for dtype in dtypes:
+            images = torch.zeros((predictor.batch_size, s, s, 3),
+                                 dtype=getattr(torch, dtype.name),
+                                 device=platform)
+            program = torch.export.export(module, (twin_weights, images))
+            _check_devices(program, platform)
+            if getattr(program, "example_inputs", None) is not None:
+                program.example_inputs = None  # they hold the weights
+            torch.export.save(program, os.path.join(
+                out_dir, _program_file(platforms, platform, dtype.name)))
+        del fn, module, twin_weights  # a twin's copy of the weights
+    weights = predictor._fn.weight_args()
     torch.save([{k: v.cpu() for k, v in sd.items()} for sd in weights],
                os.path.join(out_dir, _WEIGHTS_FILE))
 
@@ -123,7 +181,7 @@ def export_predictor(predictor, out_dir: str, *,
         "num_classes": int(predictor.num_classes),
         "input_dtypes": [d.name for d in dtypes],
         "num_weight_args": len(weights),
-        "platforms": [platform],
+        "platforms": platforms,
         "torch_version": torch.__version__,
     }
     with open(os.path.join(out_dir, _META_FILE), "w") as f:
@@ -146,8 +204,8 @@ def load_exported(path: str, device=None) -> Tuple[dict, tuple, dict]:
     """Loads an artifact on ``device`` (default CUDA) -> ``(calls_by_dtype,
     weight_args, meta)``: ``calls_by_dtype[np.dtype]`` is the exported
     function ``call(weight_args, images) -> (labels, probs)`` of that input
-    dtype (``call.module``: its graph module). Imports the kernels' custom
-    ops and no model code."""
+    dtype (``call.module``: its graph module), the program traced for the
+    device's type. Imports the kernels' custom ops and no model code."""
     from fer_vit_tpu_torch.core.dtypes import resolve_device
     # the exported programs call these ops by name: register them
     from fer_vit_tpu_torch.ops import flash_attention, fused_irse_unit  # noqa: F401
@@ -173,8 +231,8 @@ def load_exported(path: str, device=None) -> Tuple[dict, tuple, dict]:
 
     calls_by_dtype = {}
     for name in meta["input_dtypes"]:
-        program = torch.export.load(
-            os.path.join(path, _FN_FILE_TMPL.format(dtype=name)))
+        program = torch.export.load(os.path.join(
+            path, _program_file(meta["platforms"], dev.type, name)))
         calls_by_dtype[np.dtype(name)] = _weights_as_traced(program.module())
     weight_args = tuple(torch.load(os.path.join(path, _WEIGHTS_FILE),
                                    map_location=dev, weights_only=True))
@@ -208,8 +266,9 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=64,
                    help="batch size pinned into the artifact")
     p.add_argument("--platforms", nargs="*", default=None,
-                   help="device type of the programs: cuda (the default) "
-                        "or cpu; one per artifact")
+                   help="device types of the programs: cuda (the default), "
+                        "cpu, or both (one artifact serving on either); "
+                        "the checkpoint loads on the first")
     p.add_argument("--input_dtypes", nargs="+",
                    default=list(DEFAULT_INPUT_DTYPES),
                    choices=("uint8", "float32"),

@@ -7,8 +7,9 @@ stacked over a head axis. This module reads such a tree as numpy (it never
 imports JAX) and writes the port's state dict:
 
 * :func:`psp_state_dict_from_jax`: ``PSpEncoder`` variables (unfused, or
-  already folded) -> third-party pSp names, the exact inverse of
-  ``fer_vit_tpu/encoders/convert_psp.py::convert_encoder_state_dict``.
+  already folded, ``fold_bn1`` included, with or without the ``act_quant``
+  scales) -> third-party pSp names, the exact inverse of
+  :func:`fer_vit_tpu_torch.encoders.convert_psp.convert_encoder_state_dict`.
 * :func:`latent_vit_state_dict_from_jax`: ``LatentViT`` params -> the
   reference LatentViT names (``fer_vit_tpu/interop/torch_state.py``).
 * :func:`image_vit_state_dict_from_jax`: ``ImageViT`` params -> the
@@ -95,7 +96,10 @@ def _trunk(sd: Dict[str, Tensor], bb: Mapping, bbs: Mapping) -> None:
     for i in _units(bb):
         u, us = bb[f"body_{i}"], bbs.get(f"body_{i}", {})
         r = f"body.{i}.res_layer"
-        _bn(sd, f"{r}.0", u, us, "bn1")
+        if "tap_bias" in u["bn1"]:  # folded with fold_bn1
+            sd[f"{r}.0.tap_bias"] = _t(u["bn1"]["tap_bias"])
+        else:
+            _bn(sd, f"{r}.0", u, us, "bn1")
         _conv(sd, f"{r}.1", u["conv1"])
         sd[f"{r}.2.weight"] = _t(u["prelu"]["alpha"])
         _conv(sd, f"{r}.3", u["conv2"])
@@ -107,15 +111,31 @@ def _trunk(sd: Dict[str, Tensor], bb: Mapping, bbs: Mapping) -> None:
             _bn(sd, f"body.{i}.shortcut_layer.1", u, us, "shortcut_bn")
 
 
+def _act_quant(sd: Dict[str, Tensor], aq: Mapping) -> None:
+    """The ``act_quant`` collection's scales (``aq_input``,
+    ``body_{i}/aq_mid``, ``aq_out_{i}``) -> ``aq_input.scale``,
+    ``body.{i}.aq_mid.scale``, ``aq_out.{i}.scale``."""
+    for name, node in aq.items():
+        if name == "aq_input":
+            sd["aq_input.scale"] = _t(node["scale"])
+        elif m := re.fullmatch(r"aq_out_(\d+)", name):
+            sd[f"aq_out.{m.group(1)}.scale"] = _t(node["scale"])
+        elif m := re.fullmatch(r"body_(\d+)", name):
+            sd[f"body.{m.group(1)}.aq_mid.scale"] = _t(
+                node["aq_mid"]["scale"])
+
+
 def psp_state_dict_from_jax(variables: Mapping) -> Dict[str, Tensor]:
     """JAX ``PSpEncoder`` variables (``params``, ``batch_stats``,
-    ``constants``; numpy or JAX arrays) -> the port's ``PSpEncoder`` state
-    dict. An unfused tree gives an unfused state dict and a folded tree
-    (``fuse_bn=True``) a folded one."""
+    ``constants``, and ``act_quant`` when calibrated; numpy or JAX arrays)
+    -> the port's ``PSpEncoder`` state dict. An unfused tree gives an
+    unfused state dict and a folded tree (``fuse_bn=True``, with or without
+    ``fold_bn1``) a folded one."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, Tensor] = {}
     _trunk(sd, params["backbone"], stats.get("backbone", {}))
+    _act_quant(sd, variables.get("act_quant", {}).get("backbone", {}))
     for name in ("latlayer1", "latlayer2"):
         _conv(sd, name, params[name])
     k = 0  # style heads, unstacked in coarse, middle, fine order

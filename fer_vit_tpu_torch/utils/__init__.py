@@ -1,1 +1,2 @@
-"""Metrics and the experiment-dir logger."""
+"""Metrics, the experiment-dir logger, the profile summary and the
+device-init watchdog."""

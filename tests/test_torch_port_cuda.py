@@ -805,3 +805,132 @@ def test_exported_bf16_programs_launch_the_kernels(smoke, tmp_path):
             assert counts == expected, (name, dtype, counts)
             np.testing.assert_array_equal(got[0], want[0])
             np.testing.assert_array_equal(got[1], want[1])
+
+
+STUDY_PLAN = ((64, 64, 1), (64, 64, 2), (64, 64, 2), (64, 64, 1))
+
+
+@pytest.mark.parametrize("variant", ["direct", "s2d", "poly", "fold_bn1",
+                                     "K1", "K1 act_quant"])
+def test_study_variants_on_the_card_match_the_cpu(smoke, variant):
+    """The trunk's study options in bf16 on the card (a pSp of six
+    64-channel units at 32 px) against the CPU's f32 direct encoder: w+
+    within the latent slice's bf16 limit (the int8 trunk: against its own
+    f32 CPU run with the card's scales, within ``chip_smoke.py``'s limit
+    for it); launches: 6 of the sm90 K1 kernel per forward on the K1
+    trunks, none on the unfused ones."""
+    import numpy as np
+
+    from fer_vit_tpu_torch.encoders.psp import (EncoderWrapper, PSpEncoder,
+                                                calibrate_act_quant)
+
+    kw = {"direct": dict(fused_residual=False),
+          "s2d": dict(fused_residual=False, s2_mode="s2d"),
+          "poly": dict(fused_residual=False, s2_mode="poly"),
+          "fold_bn1": dict(fused_residual=False, fold_bn1=True),
+          "K1": dict(fused_residual=True),
+          "K1 act_quant": dict(fused_residual=True, act_quant_min_hw=16),
+          }[variant]
+    ref = EncoderWrapper(seed=0, device="cpu", encoder=PSpEncoder(
+        plan=STUDY_PLAN, input_size=32, style_dim=64, fuse_bn=True))
+    sd = {k: v.clone() for k, v in ref.encoder.state_dict().items()}
+    g = torch.Generator().manual_seed(4)
+    for k in sd:  # non-trivial offsets, so bn1's fold is not the identity
+        if k.endswith(".bias") and sd[k].is_floating_point():
+            sd[k] = 0.1 * torch.randn(sd[k].shape, generator=g)
+
+    def build(device, dtype):
+        return EncoderWrapper(sd, device=device, dtype=dtype, **kw,
+                              encoder=PSpEncoder(
+                                  plan=STUDY_PLAN, input_size=32,
+                                  style_dim=64, fuse_bn=True, dtype=dtype,
+                                  **kw))
+
+    imgs = np.random.default_rng(9).integers(0, 256, (4, 32, 32, 3),
+                                             np.uint8)
+    card = build("cuda", None)
+    if "act_quant_min_hw" in kw:
+        scales = calibrate_act_quant(card.encoder, imgs)
+        assert scales and not any("aq_mid" in k for k in scales)
+        cpu = build("cpu", torch.float32)
+        cpu.encoder.load_state_dict({k: v.cpu() for k, v in
+                                     card.encoder.state_dict().items()})
+    else:
+        cpu = EncoderWrapper(sd, device="cpu", dtype=torch.float32,
+                             fused_residual=False, encoder=PSpEncoder(
+                                 plan=STUDY_PLAN, input_size=32,
+                                 style_dim=64, fuse_bn=True,
+                                 dtype=torch.float32))
+    fu.reset_launch_counts()
+    w = card.encode_batch(imgs)
+    torch.cuda.synchronize()
+    counts = dict(fu.fused_irse_residual.kernel_launches)
+    assert counts == {fu.SM90: 6 if kw["fused_residual"] else 0,
+                      fu.MMA: 0}, counts
+    want = cpu.encode_batch(imgs)
+    rel = float((w.cpu() - want).norm() / want.norm())
+    tol = (smoke.STUDY_AQ_BF16_W_RTOL if "act_quant_min_hw" in kw
+           else smoke.BF16_W_RTOL)
+    assert rel <= tol, (variant, rel)
+
+
+def test_two_platform_artifact_on_the_card(smoke, tmp_path):
+    """A bf16 latent predictor and a bf16 ImageViT exported with
+    ``platforms=["cuda", "cpu"]``: one artifact with both platforms'
+    programs and one weights file; on the card it launches the sm90
+    kernels (6 of K1, 2 of K2 per batch) and answers as the live predictor
+    bit for bit; on the CPU it launches nothing and answers as a live CPU
+    predictor with the same weights bit for bit."""
+    import os
+
+    import numpy as np
+
+    from fer_vit_tpu_torch.encoders.psp import EncoderWrapper, PSpEncoder
+    from fer_vit_tpu_torch.export import export_predictor
+    from fer_vit_tpu_torch.models import ImageViT, LatentViT
+    from fer_vit_tpu_torch.serve import Predictor
+
+    plan = ((64, 64, 1), (64, 64, 2), (64, 64, 2), (64, 64, 1))
+
+    def latent(device):
+        psp = EncoderWrapper(seed=0, device=device, encoder=PSpEncoder(
+            plan=plan, input_size=32, style_dim=64, fuse_bn=True,
+            fused_residual=True))
+        return Predictor(LatentViT(
+            latent_dim=64, embed_dim=64, depth=1, heads=2, mlp_dim=128,
+            generator=torch.Generator().manual_seed(1)), psp=psp,
+            batch_size=4, device=device)
+
+    def image(device):
+        return Predictor(ImageViT(
+            img_size=48, patch_size=4, embed_dim=128, depth=2, heads=2,
+            mlp_dim=256, dropout=0.0,
+            generator=torch.Generator().manual_seed(2)), image_route=True,
+            batch_size=4, device=device)
+
+    rng = np.random.default_rng(7)
+    for name, make, size, per_batch in (
+            ("latent", latent, 32, {fu.SM90: 6}),
+            ("image", image, 48, {SM90: 2})):
+        art = str(tmp_path / name)
+        meta = export_predictor(make(None), art, platforms=["cuda", "cpu"],
+                                input_dtypes=["uint8"])
+        assert meta["platforms"] == ["cuda", "cpu"]
+        assert sorted(os.listdir(art)) == [
+            "meta.json", "predict_fn_cpu_uint8.pt2",
+            "predict_fn_cuda_uint8.pt2", "weights.pt"]
+        x = rng.integers(0, 256, (6, size, size, 3)).astype(np.uint8)
+        for device in ("cuda", "cpu"):
+            want = make(device).predict(x)
+            reloaded = Predictor.from_exported(art, device=device)
+            fu.reset_launch_counts()
+            reset_launch_counts()
+            got = reloaded.predict(x)
+            torch.cuda.synchronize()
+            counts = {**fu.fused_irse_residual.kernel_launches,
+                      **fused_attention.kernel_launches}
+            expected = {k: (2 * per_batch.get(k, 0) if device == "cuda"
+                            else 0) for k in counts}
+            assert counts == expected, (name, device, counts)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])

@@ -503,3 +503,52 @@ def test_console_entry_points_match_jax(tmp_path):
                          env=dict(os.environ, PYTHONPATH=str(ROOT)), cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and "serve" in res.stderr
+
+
+# -- artifacts for several device types ---------------------------------------
+
+
+def test_one_platform_artifact_keeps_its_layout(image_predictor, tmp_path):
+    """``platforms=["cpu"]`` writes the one-platform layout, which loads and
+    answers as the live predictor."""
+    art = str(tmp_path / "art")
+    meta = export_predictor(image_predictor, art, platforms=["cpu"])
+    assert meta["platforms"] == ["cpu"]
+    assert sorted(os.listdir(art)) == ["meta.json", "predict_fn_float32.pt2",
+                                       "predict_fn_uint8.pt2", "weights.pt"]
+    _assert_roundtrip(image_predictor,
+                      Predictor.from_exported(art, device="cpu"), 48)
+
+
+@pytest.mark.parametrize("platforms", [["cuda", "cpu"], ["cuda"]])
+def test_untraceable_platform_refused(image_predictor, tmp_path, platforms):
+    """A platform this process cannot trace is refused, naming it, before
+    anything is written; it is not dropped from the artifact."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    art = tmp_path / "art"
+    with pytest.raises(ValueError, match="'cuda'.*CUDA is not available"):
+        export_predictor(image_predictor, str(art), platforms=platforms)
+    assert not art.exists()
+    with pytest.raises(ValueError, match="unknown platform 'tpu'"):
+        export_predictor(image_predictor, str(art), platforms=["cpu", "tpu"])
+
+
+def test_two_platform_meta_picks_the_cpu_program(image_art, image_predictor,
+                                                 tmp_path):
+    """A two-platform artifact, made by hand from a cpu one: the cpu
+    programs under their platform names and unreadable cuda ones beside
+    them. On the CPU, ``load_exported`` reads the cpu programs only and
+    the artifact answers as the live predictor."""
+    art = _copy_with_meta(image_art[0], tmp_path,
+                          platforms=["cuda", "cpu"])
+    for dtype in ("uint8", "float32"):
+        os.rename(os.path.join(art, f"predict_fn_{dtype}.pt2"),
+                  os.path.join(art, f"predict_fn_cpu_{dtype}.pt2"))
+        with open(os.path.join(art, f"predict_fn_cuda_{dtype}.pt2"),
+                  "wb") as f:
+            f.write(b"not a program")
+    reloaded = Predictor.from_exported(art, device="cpu")
+    _assert_roundtrip(image_predictor, reloaded, 48)
+    assert len(_op_nodes(reloaded, "uint8", "fused_attention")) == \
+        TINY_IMAGE_VIT["depth"]

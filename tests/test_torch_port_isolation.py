@@ -327,6 +327,39 @@ def test_scaleout_modules_import_with_jax_blocked():
     assert "IMPORTED" in res.stdout
 
 
+def test_last_slice_modules_import_with_jax_blocked(tmp_path):
+    """The converter CLI, the study options, the profile summary and the
+    watchdog import with jax blocked, and the converter runs there."""
+    mods = ["fer_vit_tpu_torch.encoders.convert_psp",
+            "fer_vit_tpu_torch.encoders.irse",
+            "fer_vit_tpu_torch.encoders.folding",
+            "fer_vit_tpu_torch.utils.profile",
+            "fer_vit_tpu_torch.utils.watchdog"]
+    assert set(mods) <= set(_modules())
+    pt = tmp_path / "psp.pt"
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['fer_vit_tpu'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import torch\n"
+        "from fer_vit_tpu_torch.encoders import convert_psp\n"
+        "from fer_vit_tpu_torch.encoders.psp import PSpEncoder\n"
+        "plan = ((64, 16, 1), (16, 32, 2), (32, 32, 2), (32, 64, 1))\n"
+        "enc = PSpEncoder(plan=plan, input_size=32, style_dim=16)\n"
+        "sd = {'encoder.' + k: v for k, v in enc.state_dict().items()\n"
+        "      if k != 'latent_avg'}\n"
+        f"torch.save({{'state_dict': sd}}, {str(pt)!r})\n"
+        f"convert_psp.main([{str(pt)!r}, {str(tmp_path / 'psp.npz')!r}])\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "wrote" in res.stdout and (tmp_path / "psp.npz").exists()
+
+
 def test_scaleout_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
     """export, reload, the server's CLI, the mesh and the process group
     default to CUDA and raise without it, before anything is read; each
