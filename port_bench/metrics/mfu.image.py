@@ -1,0 +1,4 @@
+"""mfu.image: the image route's whole forward (ViT) as a share of
+the bf16 peak, in % (:func:`port_bench.core.readers.mfu`)."""
+
+from port_bench.core.readers import mfu as read  # noqa: F401
