@@ -15,7 +15,9 @@ pixel2style2pixel ``GradualStyleEncoder``):
 Parameters carry the third-party names (``input_layer.*``, ``body.*``,
 ``styles.{k}.convs.{2j}``, ``styles.{k}.linear``, ``latlayer1/2``) plus the
 ``latent_avg`` buffer. The heads run one after another (the JAX package
-vmaps them over a stacked head axis). The trunk's study options
+vmaps them over a stacked head axis). The forward's three stages are
+spans (:mod:`fer_vit_tpu_torch.utils.trace`): ``psp.trunk``, ``psp.fpn``
+and ``psp.heads``. The trunk's study options
 (``s2_mode``, ``fold_bn1``, ``act_quant_min_hw``; see
 :mod:`fer_vit_tpu_torch.encoders.irse`) pass through :class:`PSpEncoder` and
 :class:`EncoderWrapper`; :func:`calibrate_act_quant` sets the int8 taps'
@@ -40,6 +42,7 @@ from fer_vit_tpu_torch.encoders.irse import (IR_SE_50_PLAN, ActQuant,
                                              IRSEBackbone, conv_nhwc)
 from fer_vit_tpu_torch.interop.from_jax import (load_npz_variables,
                                                 psp_state_dict_from_jax)
+from fer_vit_tpu_torch.utils.trace import span
 
 
 class EqualLinear(nn.Module):
@@ -157,17 +160,20 @@ class PSpEncoder(IRSEBackbone):
     def forward(self, x: torch.Tensor,
                 add_latent_avg: bool = True) -> torch.Tensor:
         x = x.to(compute_dtype(x.device, self.dtype))
-        c1, c2, c3 = super().forward(x)
-        p2 = upsample_add(c3, conv_nhwc(c2, self.latlayer1))
-        p1 = upsample_add(p2, conv_nhwc(c1, self.latlayer2))
-        feats = [c3] * self.coarse_ind + [p2] * (
-            self.middle_ind - self.coarse_ind) + [p1] * (
-            self.n_styles - self.middle_ind)
-        w = torch.stack([head(f) for head, f in zip(self.styles, feats)],
-                        dim=1)
-        if add_latent_avg:
-            w = w + self.latent_avg[None].to(w.dtype)
-        return w.float()
+        with span("psp.trunk"):
+            c1, c2, c3 = super().forward(x)
+        with span("psp.fpn"):
+            p2 = upsample_add(c3, conv_nhwc(c2, self.latlayer1))
+            p1 = upsample_add(p2, conv_nhwc(c1, self.latlayer2))
+        with span("psp.heads"):
+            feats = [c3] * self.coarse_ind + [p2] * (
+                self.middle_ind - self.coarse_ind) + [p1] * (
+                self.n_styles - self.middle_ind)
+            w = torch.stack([head(f) for head, f in zip(self.styles, feats)],
+                            dim=1)
+            if add_latent_avg:
+                w = w + self.latent_avg[None].to(w.dtype)
+            return w.float()
 
 
 def init_psp_parameters_(encoder: PSpEncoder,

@@ -56,6 +56,7 @@ from fer_vit_tpu_torch import EMOTION_NAMES, NUM_CLASSES
 from fer_vit_tpu_torch.core.dtypes import (DeviceLike, indexed,
                                            resolve_device, same_device)
 from fer_vit_tpu_torch.core.mesh import DATA_AXIS
+from fer_vit_tpu_torch.utils.trace import span
 
 
 def _label_name(label: int) -> str:
@@ -90,14 +91,17 @@ class PredictFn(nn.Module):
             from fer_vit_tpu_torch.data.image_pipeline import normalize_images
             from fer_vit_tpu_torch.encoders.psp import to_unit_floats
 
-            logits = self.model(normalize_images(
-                to_unit_floats(images), out_size=self.input_size,
-                already_01=True))
+            with span("serve.preprocess"):
+                x = normalize_images(to_unit_floats(images),
+                                     out_size=self.input_size,
+                                     already_01=True)
+            logits = self.model(x)
         else:
             from fer_vit_tpu_torch.encoders.psp import preprocess_images
 
-            logits = self.model(self.encoder(
-                preprocess_images(images, size=self.input_size)))
+            with span("serve.preprocess"):
+                x = preprocess_images(images, size=self.input_size)
+            logits = self.model(self.encoder(x))
         probs = torch.softmax(logits.float(), dim=-1)
         return torch.argmax(logits, dim=-1), probs
 
@@ -317,10 +321,13 @@ class Predictor:
 
         def drain_one() -> None:
             k0, shards = inflight.popleft()
-            labels = np.concatenate([l.cpu().numpy() for l, _, _ in shards])
-            probs = np.concatenate([p.cpu().numpy() for _, p, _ in shards])
-            labels_out.append(labels[:k0].astype(np.int32))
-            probs_out.append(probs[:k0].astype(np.float32))
+            with span("serve.drain"):
+                labels = np.concatenate([l.cpu().numpy()
+                                         for l, _, _ in shards])
+                probs = np.concatenate([p.cpu().numpy()
+                                        for _, p, _ in shards])
+                labels_out.append(labels[:k0].astype(np.int32))
+                probs_out.append(probs[:k0].astype(np.float32))
 
         for imgs, k in batch_iter:
             inflight.append((k, self._launch(imgs)))
@@ -350,8 +357,9 @@ class Predictor:
         per = len(chunk) // len(self._replicas)
         out = []
         for i, (dev, fn) in enumerate(self._replicas):
-            host, x = _put(chunk[i * per:(i + 1) * per], dev)
-            with _on(dev), torch.inference_mode():
+            with span("serve.put"):
+                host, x = _put(chunk[i * per:(i + 1) * per], dev)
+            with span("serve.forward"), _on(dev), torch.inference_mode():
                 labels, probs = fn(x)
             out.append((labels, probs, host))
         return out
@@ -422,13 +430,14 @@ def _put(chunk: np.ndarray, device: torch.device):
 
 
 class _Request:
-    __slots__ = ("image", "event", "result", "error")
+    __slots__ = ("image", "event", "result", "error", "submitted")
 
     def __init__(self, image: np.ndarray):
         self.image = image
         self.event = threading.Event()
         self.result: Optional[dict] = None
         self.error: Optional[Exception] = None
+        self.submitted = time.perf_counter()
 
 
 class QueueFullError(RuntimeError):
@@ -447,7 +456,20 @@ class Batcher:
     ``8 * max_batch``); beyond that :meth:`submit` sheds load with
     :class:`QueueFullError`. ``submit_timeout`` is the default bound of one
     request's wait, in seconds: raise it for a server built without
-    ``warmup()``, where the first request pays the kernels' build."""
+    ``warmup()``, where the first request pays the kernels' build.
+
+    Counters, always on (two ``time.perf_counter()`` reads a request), kept
+    by the loop's thread (``refused`` by :meth:`submit`) and read together
+    by :meth:`stats`:
+    ``requests`` taken into device batches; ``device_batches``, the
+    predictor calls made for them; ``queue_wait_s``, the sum over those
+    requests of the time from ``submit`` to being taken from the queue;
+    ``collect_s``, the sum over batches of the time from the first request
+    taken to the batch closed; ``refused``, submissions shed with
+    :class:`QueueFullError`. ``GET /healthz`` reports them
+    (:func:`make_server`). The loop's steps are spans
+    (:mod:`fer_vit_tpu_torch.utils.trace`): ``serve.collect``,
+    ``serve.stack`` and ``serve.answer``, around the predictor's own."""
 
     def __init__(self, predictor: Predictor, max_batch: Optional[int] = None,
                  max_wait_ms: float = 5.0, max_queue: Optional[int] = None,
@@ -460,7 +482,12 @@ class Batcher:
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
         self.submit_timeout = float(submit_timeout)
+        self.requests = 0
         self.device_batches = 0  # predictor calls the loop has made
+        self.queue_wait_s = 0.0
+        self.collect_s = 0.0
+        self.refused = 0
+        self._stats_lock = threading.Lock()
         # the card the loop launches on: the predictor's, by index (a
         # thread starts on card 0 whatever the creating thread's is)
         device = getattr(predictor, "device", None)
@@ -490,6 +517,7 @@ class Batcher:
             if self._stop.is_set():
                 raise RuntimeError("batcher is closed")
             if self._q.qsize() >= self.max_queue:
+                self.refused += 1
                 raise QueueFullError(
                     f"request queue full ({self.max_queue} pending)")
             self._q.put(req)
@@ -498,6 +526,19 @@ class Batcher:
         if req.error is not None:
             raise req.error
         return req.result
+
+    def stats(self) -> dict:
+        """The counters (see the class), as one consistent reading."""
+        with self._stats_lock:
+            return {"requests": self.requests,
+                    "device_batches": self.device_batches,
+                    "queue_wait_s": self.queue_wait_s,
+                    "collect_s": self.collect_s,
+                    "refused": self.refused}
+
+    def queue_depth(self) -> int:
+        """Requests waiting to be taken into a batch."""
+        return self._q.qsize()
 
     def _loop(self) -> None:
         if self._card is not None:
@@ -509,34 +550,44 @@ class Batcher:
                 continue
             if first is None:
                 continue
-            batch = [first]
-            deadline = time.monotonic() + self.max_wait_s
-            while len(batch) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    req = self._q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if req is not None:
-                    batch.append(req)
+            taken = time.perf_counter()
+            with span("serve.collect"):
+                batch, waited = [first], taken - first.submitted
+                deadline = time.monotonic() + self.max_wait_s
+                while len(batch) < self.max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        req = self._q.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if req is not None:
+                        batch.append(req)
+                        waited += time.perf_counter() - req.submitted
+                closed = time.perf_counter()
             try:
-                images = np.stack([r.image for r in batch])
-                self.device_batches += 1
+                with span("serve.stack"):
+                    images = np.stack([r.image for r in batch])
+                with self._stats_lock:
+                    self.requests += len(batch)
+                    self.device_batches += 1
+                    self.queue_wait_s += waited
+                    self.collect_s += closed - taken
                 labels, probs = self.predictor.predict(images)
             except Exception as e:  # report to every waiter, keep serving
                 for r in batch:
                     r.error = e
                     r.event.set()
                 continue
-            for r, label, prob in zip(batch, labels, probs):
-                r.result = {
-                    "label": int(label),
-                    "label_name": _label_name(int(label)),
-                    "probs": [float(p) for p in prob],
-                }
-                r.event.set()
+            with span("serve.answer"):
+                for r, label, prob in zip(batch, labels, probs):
+                    r.result = {
+                        "label": int(label),
+                        "label_name": _label_name(int(label)),
+                        "probs": [float(p) for p in prob],
+                    }
+                    r.event.set()
 
     def close(self) -> None:
         with self._submit_lock:
@@ -572,11 +623,13 @@ def _decode_request_image(body: bytes, size: int) -> np.ndarray:
 MAX_REQUEST_BYTES = 32 * 1024 * 1024
 
 
-def _health(predictor) -> dict:
+def _health(predictor, batcher: Batcher) -> dict:
     device = getattr(predictor, "device", None)
     out = {"ok": True,
            "platform": None if device is None else device.type,
-           "model": predictor.describe()}
+           "model": predictor.describe(),
+           "batcher": dict(batcher.stats(),
+                           queue_depth=batcher.queue_depth())}
     if device is not None and device.type == "cuda":
         out["device_name"] = torch.cuda.get_device_name(device)
     return out
@@ -591,7 +644,10 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
     for shutdown).
 
     Routes: ``GET /healthz`` -> the platform (``cuda`` or ``cpu``), the
-    card's name and the model; ``POST /predict`` with raw image bytes ->
+    card's name, the model and ``"batcher"``: the batcher's counters
+    (:meth:`Batcher.stats`) and its queue depth, which an operator polls
+    for the load and the time requests wait (two readings' difference over
+    their interval is the window's); ``POST /predict`` with raw image bytes ->
     ``{"label", "label_name", "probs"}``; ``POST /predict_batch`` with one
     uint8 ``.npy`` of (N, S, S, 3) -> ``{"predictions": [...]}`` from one
     predictor call. More than ``max_queue`` pending requests -> 429 with
@@ -627,7 +683,7 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
 
         def do_GET(self):  # noqa: N802
             if self.path in ("/healthz", "/health"):
-                self._json(200, _health(predictor))
+                self._json(200, _health(predictor, batcher))
             else:
                 self._json(404, {"error": f"no route {self.path}"})
 

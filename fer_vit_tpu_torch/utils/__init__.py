@@ -1,2 +1,2 @@
-"""Metrics, the experiment-dir logger, the profile summary and the
-device-init watchdog."""
+"""Metrics, the experiment-dir logger, the profile summary, the
+profiler spans and the device-init watchdog."""
