@@ -1,10 +1,12 @@
 """IR-SE ResNet trunk (ArcFace-style), NHWC, in PyTorch.
 
-Port of ``fer_vit_tpu/encoders/irse.py``. Activations are NHWC tensors; a
-convolution sees them as ``x.permute(0, 3, 1, 2)``, a channels-last NCHW
-view, so cuDNN takes them without a copy. Modules carry the third-party pSp parameter names
-(``input_layer.*``, ``body.{i}.res_layer.{0..5}``, ``body.{i}.shortcut_layer.*``)
-so one state dict serves the port, the bridge and the JAX converter.
+Port of ``fer_vit_tpu/encoders/irse.py``. Activations are dense NHWC
+tensors; a convolution (:func:`conv_nhwc`) sees them as ``x.permute(0, 3, 1,
+2)``, a channels-last NCHW view, with a channels-last weight, so cuDNN runs
+its NHWC kernels with no copy or transpose and returns dense NHWC. Modules
+carry the third-party pSp parameter names (``input_layer.*``,
+``body.{i}.res_layer.{0..5}``, ``body.{i}.shortcut_layer.*``) so one state
+dict serves the port, the bridge and the JAX converter.
 
 A unit's residual branch is ``bn1 -> conv1 -> PReLU -> conv2(stride) -> bn2 ->
 SE``. With ``fuse_bn`` the BatchNorms that follow a conv (bn2, the shortcut's
@@ -55,17 +57,20 @@ BN_EPS = 1e-5
 S2_MODES = ("direct", "s2d", "poly")
 
 
-def conv_weights(conv: nn.Conv2d, dtype: torch.dtype):
-    """``conv``'s weight and bias (or None) in ``dtype``, cast once."""
+def conv_weights(conv: nn.Conv2d, dtype: torch.dtype,
+                 memory_format: torch.memory_format = torch.contiguous_format):
+    """``conv``'s weight in ``dtype`` and ``memory_format`` and its bias (or
+    None) in ``dtype``, cast once per dtype and format."""
     return cast_once(
-        conv, dtype, (conv.weight, conv.bias),
-        lambda: (conv.weight.to(dtype),
+        conv, (dtype, memory_format), (conv.weight, conv.bias),
+        lambda: (conv.weight.to(dtype, memory_format=memory_format),
                  None if conv.bias is None else conv.bias.to(dtype)))
 
 
 def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` on NHWC ``x``, in x's dtype; returns NHWC."""
-    weight, bias = conv_weights(conv, x.dtype)
+    """``conv`` on NHWC ``x``, in x's dtype, with a channels-last weight;
+    returns NHWC, dense when x is."""
+    weight, bias = conv_weights(conv, x.dtype, torch.channels_last)
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias,
                  stride=conv.stride, padding=conv.padding)
     return y.permute(0, 2, 3, 1)

@@ -104,17 +104,22 @@ def interp_matrix(in_s: int, out_s: int) -> np.ndarray:
 
 
 def _resample(x: torch.Tensor, mh: np.ndarray, mw: np.ndarray) -> torch.Tensor:
-    """``mh @ x @ mw^T`` over the spatial axes of NHWC x, in x's dtype."""
+    """``mh @ x @ mw^T`` over the spatial axes of NHWC x, in x's dtype, as
+    two batched products over NHWC views: (B, H, W C) by rows, then (B Ho,
+    W, C) by columns. The result is dense NHWC."""
     dt = x.dtype
     ah = torch.from_numpy(mh).to(device=x.device, dtype=dt)
     aw = torch.from_numpy(mw).to(device=x.device, dtype=dt)
-    x = torch.einsum("oh,bhwc->bowc", ah, x)
-    return torch.einsum("ow,bhwc->bhoc", aw, x)
+    b, h, w, c = x.shape
+    ho, wo = ah.shape[0], aw.shape[0]
+    x = torch.matmul(ah, x.reshape(b, h, w * c))
+    return torch.matmul(aw, x.reshape(b * ho, w, c)).reshape(b, ho, wo, c)
 
 
 def upsample_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Bilinear (align-corners, as pSp's F.interpolate) upsample of NHWC x
-    to y's size, plus y."""
+    to y's size, plus y; dense NHWC when y is, the layout the heads'
+    convolutions read."""
     (h, w), (ih, iw) = y.shape[1:3], x.shape[1:3]
     if (ih, iw) != (h, w):
         x = _resample(x, interp_matrix(ih, h), interp_matrix(iw, w))

@@ -20,7 +20,7 @@ from fer_vit_tpu.encoders.folding import fold_psp_variables
 from fer_vit_tpu.encoders.psp import EncoderWrapper as JaxEncoderWrapper
 from fer_vit_tpu.encoders.psp import PSpEncoder as JaxPSpEncoder
 from fer_vit_tpu_torch.encoders.folding import fold_psp_state_dict
-from fer_vit_tpu_torch.encoders.irse import BottleneckIRSE
+from fer_vit_tpu_torch.encoders.irse import BottleneckIRSE, conv_weights
 from fer_vit_tpu_torch.encoders.psp import EncoderWrapper, PSpEncoder
 from fer_vit_tpu_torch.interop.from_jax import (load_npz_variables,
                                                 psp_state_dict_from_jax)
@@ -182,7 +182,8 @@ def test_random_wrapper_is_seeded():
 
 def test_frozen_encoder_casts_weights_once_and_follows_reloads():
     """A frozen encoder keeps the fused units' operands (OHWI weights seen
-    as HWIO) between batches and makes them anew after load_state_dict."""
+    as HWIO) and the channels-last conv weights between batches and makes
+    them anew after load_state_dict."""
     def wrapper(seed):
         return EncoderWrapper(seed=seed, device="cpu", encoder=PSpEncoder(
             **TINY_PSP, fuse_bn=True, fused_residual=True))
@@ -196,7 +197,13 @@ def test_frozen_encoder_casts_weights_once_and_follows_reloads():
     assert unit._fused_operands(torch.float32) is ops
     w1 = ops[2]
     assert w1.shape == (3, 3, 64, 16) and w1.permute(3, 0, 1, 2).is_contiguous()
+    head = a.encoder.styles[0].convs[0]
+    cl = conv_weights(head, torch.float32, torch.channels_last)
+    assert conv_weights(head, torch.float32, torch.channels_last) is cl
+    assert cl[0].is_contiguous(memory_format=torch.channels_last)
+    assert not cl[0].is_contiguous() and torch.equal(cl[0], head.weight)
     a.encoder.load_state_dict(b.encoder.state_dict())
     assert unit._fused_operands(torch.float32) is not ops
+    assert conv_weights(head, torch.float32, torch.channels_last) is not cl
     assert torch.equal(a.encode_batch(imgs), wb)
     assert not torch.equal(wa, wb)
