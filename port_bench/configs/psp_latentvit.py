@@ -22,6 +22,23 @@ import torch
 from port_bench.core.weights import fan_in_bound, seeded_state
 from port_bench.reference import bounds, psp, transformer
 
+# The shapes of the harness's CPU tests: ``SMALL`` for every test that runs
+# the cell, ``CONTROL_SHAPES`` where the fp8 controls' gaps have to show
+# (LatentViT at its published widths with few layers, the encoder small).
+SMALL = {
+    "input_size": 32,
+    "encoder": {"backbone": "ir_se_small",
+                "plan": [[64, 64, 1], [64, 80, 1], [80, 96, 1], [96, 64, 1]],
+                "n_styles": 18, "coarse_ind": 3, "middle_ind": 7,
+                "style_dim": 64, "fpn_dim": 64, "fold_bn": True,
+                "fused_residual": True},
+    "classifier": {"latent_dim": 64, "seq_len": 18, "embed_dim": 32,
+                   "depth": 1, "heads": 2, "mlp_dim": 64, "num_classes": 7,
+                   "dropout": 0.1}}
+CONTROL_SHAPES = dict(SMALL, classifier={
+    "latent_dim": 64, "seq_len": 18, "embed_dim": 512, "depth": 6,
+    "heads": 8, "mlp_dim": 2048, "num_classes": 7, "dropout": 0.1})
+
 
 def _encoder(spec: dict, folded: bool):
     """The port's encoder for ``spec``: as a checkpoint's unfused state

@@ -21,6 +21,20 @@ from port_bench.reference import bounds, transformer
 
 STD02 = 0.02 * math.sqrt(3.0)
 
+# The shapes of the harness's CPU tests: ``SMALL`` for every test that runs
+# the cell, ``CONTROL_SHAPES`` where the fp8 controls' gaps have to show
+# (ViT-Base's widths with two layers on 64 px).
+SMALL = {
+    "input_size": 32,
+    "classifier": {"img_size": 32, "patch_size": 16, "embed_dim": 32,
+                   "depth": 1, "heads": 2, "mlp_dim": 64, "num_classes": 7,
+                   "dropout": 0.1}}
+CONTROL_SHAPES = {
+    "input_size": 64,
+    "classifier": {"img_size": 64, "patch_size": 16, "embed_dim": 768,
+                   "depth": 2, "heads": 12, "mlp_dim": 3072,
+                   "num_classes": 7, "dropout": 0.1}}
+
 
 def _model(spec: dict):
     from fer_vit_tpu_torch.models import ImageViT

@@ -5,13 +5,16 @@
         --seeds 11 12 13 ... --control-seeds 11 12 13
 
 For each seed the cell is built from that seed, runs a short window at its
-own sizes and load, and its numbers are read against the f32 reference:
-the lower readings. For each control seed both controls are read too: the
-reference itself computed one precision below the configurations' bf16
-(fp8 operands, and fp8 throughout; :mod:`port_bench.reference.precision`),
-put in the program's place, against the f32 reference on the same inputs.
-One JSON line per seed; a limit lies above every lower reading and below
-the smallest reading of each control that fails it.
+own sizes and load, and its numbers are read against the f32 reference
+(the driver's ``judge``): the lower readings. For each control seed the
+controls are read too, by the driver's ``controls(session, outputs)``: for
+the serving drivers, the reference itself computed one precision below the
+configurations' bf16 (fp8 operands, and fp8 throughout;
+:mod:`port_bench.reference.precision`), put in the program's place,
+against the f32 reference on the same inputs. A new driver brings its own
+``controls``, so a new cell's controls are read by the same command. One
+JSON line per seed; a limit lies above every lower reading and below the
+smallest reading of each control that fails it.
 """
 
 from __future__ import annotations
@@ -26,18 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from port_bench.core import bench, compare  # noqa: E402
-from port_bench.reference.precision import CONTROLS, strict_f32  # noqa: E402
-
-
-def serving_controls(session, outputs) -> dict:
-    """{control: its numbers} on the rows the window's check compares."""
-    images = session.pool[outputs["rows"]]
-    ref = compare.reference_rows(session.cell, session.weights, images,
-                                 session.device)
-    return {c: compare.serving_numbers(compare.reference_rows(
-        session.cell, session.weights, images, session.device, c), ref)
-        for c in CONTROLS}
+from port_bench.core import bench  # noqa: E402
+from port_bench.reference.precision import strict_f32  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -60,7 +53,7 @@ def main(argv=None) -> int:
         row = {"seed": seed,
                "program": cell.driver.judge(session, outputs)}
         if seed in args.control_seeds:
-            row.update(serving_controls(session, outputs))
+            row.update(cell.driver.controls(session, outputs))
         print(json.dumps(row), flush=True)
         del session, outputs
         gc.collect()

@@ -5,11 +5,29 @@ Each piece is a file of its own under ``port_bench/``, found by name:
 
 * ``configs/<config>.json``: the configuration's sizes (the ``file`` its
   entry in ``configs`` names), and ``configs/<config>.py``: its weights,
-  builder, spans, operations and plain reference;
+  program, spans, operations and plain reference;
 * ``traffic/<traffic>.json``: the traffic's parameters, whose ``driver``
   names the general generator in ``drivers/<driver>.py`` that reads them;
 * ``cells/<cell>.json``: the limits of the numbers that decide ``correct``;
 * ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)``.
+
+What each module declares:
+
+* a configuration module: the functions its driver's ``CONFIG_NEEDS``
+  names (for ``predict`` and ``online``: ``weights``, ``predictor``,
+  ``add_spans`` and ``reference``; ``flops_per_image`` where an ``mfu``
+  metric reads it), and the shapes of the harness's CPU tests: ``SMALL``
+  (keys of the sizes to replace) and, where the controls' gaps show only
+  at published widths, ``CONTROL_SHAPES``;
+* a driver module: ``CONFIG_NEEDS``; ``setup(cell, seed, device)``, whose
+  session has ``window``, ``traced``, ``outputs`` and ``close``;
+  ``judge(session, outputs)``, the numbers compared with the cell's
+  limits; ``controls(session, outputs)``, ``{control: its numbers}``;
+  ``SMALL_TRAFFIC`` and ``CONTROL_TRAFFIC``, the traffic keys the CPU
+  tests replace (the CPU test of the controls takes the drivers that
+  declare the second); and ``ANSWERS = "PredictFn.forward"`` where its
+  check compares the port's ``PredictFn`` answers, so that the test which
+  alters them there picks its cells.
 
 A driver reports each end-to-end quantity under its plain name
 (``images_per_s``). An end-to-end metric's name is that quantity, or the
@@ -17,8 +35,9 @@ quantity, a dot and a qualifier (``images_per_s.latent``), so that cells
 whose runs spread differently hold the same quantity to bounds of their
 own.
 
-Adding a cell, a configuration or a metric therefore adds files and
-entries, and edits none.
+Adding a cell, a configuration, a driver with its check, or a metric
+therefore adds files and entries, and edits none; the harness's tests pick
+the new pieces up from ``BENCHMARK.json`` and these declarations.
 """
 
 from __future__ import annotations

@@ -10,6 +10,11 @@ the plain reference run afterwards on the same images, in blocks of rows:
   row's w+ code.
 
 A number is within its limit when it is finite and at most the limit.
+
+The controls (:func:`serving_controls`) are the same reference one
+precision below the configurations' bf16, put in the program's place and
+read by the same numbers against the f32 reference; a driver's
+``controls`` hands them its check's rows.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+
+from port_bench.reference.precision import CONTROLS
 
 BLOCK = 32
 
@@ -51,6 +58,16 @@ def serving_numbers(program: Mapping[str, np.ndarray],
         nums["wplus_rel_l2"] = float(np.max(
             np.linalg.norm(p - r, axis=1) / np.linalg.norm(r, axis=1)))
     return nums
+
+
+def serving_controls(cell, weights: dict, images: np.ndarray,
+                     device: torch.device) -> Dict[str, Dict[str, float]]:
+    """{control: its :func:`serving_numbers`} on ``images``, each against
+    the f32 reference on the same images."""
+    ref = reference_rows(cell, weights, images, device)
+    return {c: serving_numbers(reference_rows(cell, weights, images, device,
+                                              c), ref)
+            for c in CONTROLS}
 
 
 def checks(numbers: Mapping[str, float], limits: Mapping[str, float]):

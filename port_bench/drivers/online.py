@@ -38,6 +38,17 @@ import torch
 from port_bench.core import compare, stats, trace
 from port_bench.core.weights import Laps, images
 
+# What this driver calls on a configuration module.
+CONFIG_NEEDS = ("weights", "predictor", "add_spans", "reference")
+# Where the answers its check compares are produced: the port's
+# ``serve.PredictFn.forward``, whose class probabilities ``judge`` reads.
+ANSWERS = "PredictFn.forward"
+# The traffic of the harness's CPU tests: ``SMALL_TRAFFIC`` for every test
+# that runs a cell, ``CONTROL_TRAFFIC`` where the fp8 controls are read.
+SMALL_TRAFFIC = {"rate_per_s": 40, "pool": 20, "workers": 8,
+                 "check_requests": 5, "trace_seconds": 0.3}
+CONTROL_TRAFFIC = dict(SMALL_TRAFFIC, check_requests=32)
+
 
 # pixels (row, column) whose values, with an answer's probabilities, find
 # a request's row among the window's device batches
@@ -259,3 +270,11 @@ def judge(session: Session, outputs: dict) -> dict:
     nums = compare.serving_numbers(outputs, ref)
     nums["unanswered"] = float(outputs["unanswered"])
     return nums
+
+
+def controls(session: Session, outputs: dict) -> dict:
+    """{control: its numbers}: :func:`port_bench.core.compare.
+    serving_controls` on the images behind the answers ``judge`` compares."""
+    return compare.serving_controls(session.cell, session.weights,
+                                    session.pool[outputs["rows"]],
+                                    session.device)

@@ -25,6 +25,16 @@ import torch
 from port_bench.core import compare, trace
 from port_bench.core.weights import Laps, images
 
+# What this driver calls on a configuration module.
+CONFIG_NEEDS = ("weights", "predictor", "add_spans", "reference")
+# Where the answers its check compares are produced: the port's
+# ``serve.PredictFn.forward``, whose class probabilities ``judge`` reads.
+ANSWERS = "PredictFn.forward"
+# The traffic of the harness's CPU tests: ``SMALL_TRAFFIC`` for every test
+# that runs a cell, ``CONTROL_TRAFFIC`` where the fp8 controls are read.
+SMALL_TRAFFIC = {"images_per_call": 70, "check_rows": 10}
+CONTROL_TRAFFIC = dict(SMALL_TRAFFIC, check_rows=64)
+
 
 class Session:
     def __init__(self, cell, seed: int, device: torch.device):
@@ -125,3 +135,11 @@ def judge(session: Session, outputs: dict) -> dict:
                                  session.pool[outputs["rows"]],
                                  session.device)
     return compare.serving_numbers(outputs, ref)
+
+
+def controls(session: Session, outputs: dict) -> dict:
+    """{control: its numbers}: :func:`port_bench.core.compare.
+    serving_controls` on the images behind the answers ``judge`` compares."""
+    return compare.serving_controls(session.cell, session.weights,
+                                    session.pool[outputs["rows"]],
+                                    session.device)

@@ -1,6 +1,12 @@
-"""Small shapes of the benchmark's configurations and traffic, for CPU
-tests of the harness. Tests that need the card take the ``card``
-fixture, which skips without one."""
+"""Shared pieces of the CPU tests of the harness.
+
+A cell's small shapes are its pieces' own: the configuration module's
+``SMALL`` (and ``CONTROL_SHAPES``, where the fp8 controls' gaps have to
+show) and the driver module's ``SMALL_TRAFFIC`` (and ``CONTROL_TRAFFIC``).
+Tests choose their cells from ``BENCHMARK.json`` and those declarations,
+so a cell added by files and entries alone is tested by every case that
+applies to it. Tests that need the card take the ``card`` fixture, which
+skips without one."""
 
 import sys
 from pathlib import Path
@@ -11,39 +17,39 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-SMALL = {
-    "psp_latentvit": {
-        "input_size": 32,
-        "encoder": {"backbone": "ir_se_small",
-                    "plan": [[64, 64, 1], [64, 80, 1], [80, 96, 1],
-                             [96, 64, 1]],
-                    "n_styles": 18, "coarse_ind": 3, "middle_ind": 7,
-                    "style_dim": 64, "fpn_dim": 64, "fold_bn": True,
-                    "fused_residual": True},
-        "classifier": {"latent_dim": 64, "seq_len": 18, "embed_dim": 32,
-                       "depth": 1, "heads": 2, "mlp_dim": 64,
-                       "num_classes": 7, "dropout": 0.1}},
-    "vit_b16": {
-        "input_size": 32,
-        "classifier": {"img_size": 32, "patch_size": 16, "embed_dim": 32,
-                       "depth": 1, "heads": 2, "mlp_dim": 64,
-                       "num_classes": 7, "dropout": 0.1}},
-}
-SMALL_TRAFFIC = {
-    "predict": {"images_per_call": 70, "check_rows": 10},
-    "online": {"rate_per_s": 40, "pool": 20, "workers": 8,
-               "check_requests": 5, "trace_seconds": 0.3},
-}
 
-
-def small_cell(name, root=ROOT):
-    """The cell ``name`` at small shapes."""
+def small_cell(name, root=ROOT, control=False):
+    """The cell ``name`` at the small shapes its configuration and driver
+    declare; with ``control``, at those where the controls' gaps show."""
     from port_bench.core import bench
 
     probe = bench.cell(name, root)
-    return bench.cell(name, root, overrides=SMALL[probe.spec["name"]],
-                      traffic_overrides=SMALL_TRAFFIC[
-                          probe.traffic["driver"]])
+    shapes, traffic = probe.config.SMALL, probe.driver.SMALL_TRAFFIC
+    if control:
+        shapes = getattr(probe.config, "CONTROL_SHAPES", shapes)
+        traffic = probe.driver.CONTROL_TRAFFIC
+    return bench.cell(name, root, overrides=shapes,
+                      traffic_overrides=traffic)
+
+
+def cells_where(test, root=ROOT):
+    """The names of ``BENCHMARK.json``'s cells whose resolved cell passes
+    ``test``, in the file's order."""
+    from port_bench.core import bench
+
+    return [w["name"] for w in bench.benchmark(root)["workloads"]
+            if test(bench.cell(w["name"], root))]
+
+
+def control_fails(numbers, limits) -> bool:
+    """Whether a control's numbers fail the cell's limits. A number the
+    control does not give is not its to fail: the reference in the
+    program's place answers every request, so ``unanswered`` is the
+    program's alone."""
+    from port_bench.core import compare
+
+    given = {k: v for k, v in limits.items() if k in numbers}
+    return not compare.checks(numbers, given)[0]
 
 
 @pytest.fixture

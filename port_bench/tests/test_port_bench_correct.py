@@ -7,48 +7,32 @@ import json
 import pytest
 import torch
 
-from conftest import SMALL, SMALL_TRAFFIC, small_cell
-from port_bench import control, run
+from conftest import cells_where, control_fails, small_cell
+from port_bench import run
 from port_bench.core import bench, compare
+from port_bench.reference.precision import CONTROLS
 
 CPU = torch.device("cpu")
-SERVING = ["latent.batch", "vitb16.batch", "latent.online"]
-# Shapes at which the fp8 control's gaps show on the CPU: the published
-# widths of each model, with few layers and small images.
-LATENT_VIT = {"latent_dim": 64, "seq_len": 18, "embed_dim": 512,
-              "depth": 6, "heads": 8, "mlp_dim": 2048, "num_classes": 7,
-              "dropout": 0.1}
-CONTROL_SHAPES = {
-    "psp_latentvit": dict(SMALL["psp_latentvit"], classifier=LATENT_VIT),
-    "vit_b16": {"input_size": 64, "classifier": {
-        "img_size": 64, "patch_size": 16, "embed_dim": 768, "depth": 2,
-        "heads": 12, "mlp_dim": 3072, "num_classes": 7, "dropout": 0.1}},
-}
 
 
 @pytest.mark.parametrize("seed", [1, 2, 3])
-@pytest.mark.parametrize("name", SERVING)
+@pytest.mark.parametrize("name", cells_where(
+    lambda c: hasattr(c.driver, "CONTROL_TRAFFIC")))
 def test_the_fp8_controls_are_not_correct(name, seed):
     """The program passes; each control, in its place on the same rows,
-    fails at least one of the cell's numbers."""
-    cell = bench.cell(name, overrides=CONTROL_SHAPES[
-        bench.cell(name).spec["name"]],
-                      traffic_overrides=dict(
-                          SMALL_TRAFFIC[bench.cell(name).traffic["driver"]],
-                          check_rows=64, check_requests=32))
+    fails at least one of the cell's numbers (at the control shapes its
+    configuration and driver declare)."""
+    cell = small_cell(name, control=True)
     session = cell.driver.setup(cell, seed, CPU)
     session.window(1.0)
     outputs = session.outputs()
     session.close()
     program = cell.driver.judge(session, outputs)
     assert compare.checks(program, cell.limits)[0]
-    readings = control.serving_controls(session, outputs)
-    assert set(readings) == {"fp8_operands", "fp8"}
+    readings = cell.driver.controls(session, outputs)
+    assert set(readings) == set(CONTROLS)
     for numbers in readings.values():
-        numbers = {k: v for k, v in numbers.items() if k in cell.limits}
-        if "unanswered" in cell.limits:
-            numbers["unanswered"] = 0.0
-        assert not compare.checks(numbers, cell.limits)[0], readings
+        assert control_fails(numbers, cell.limits), readings
 
 
 def _altered(monkeypatch):
@@ -64,7 +48,8 @@ def _altered(monkeypatch):
     monkeypatch.setattr(PredictFn, "forward", forward)
 
 
-@pytest.mark.parametrize("name", SERVING)
+@pytest.mark.parametrize("name", cells_where(
+    lambda c: getattr(c.driver, "ANSWERS", None) == "PredictFn.forward"))
 def test_an_altered_answer_is_not_correct(name, monkeypatch):
     _altered(monkeypatch)
     out = run.run_cell(small_cell(name), 11, 0.2, False, CPU)
@@ -107,8 +92,7 @@ def test_on_the_card_the_program_passes_and_the_controls_fail(name, card):
     session.close()
     assert compare.checks(cell.driver.judge(session, outputs),
                           cell.limits)[0]
-    for numbers in control.serving_controls(session, outputs).values():
-        numbers = {k: v for k, v in numbers.items() if k in cell.limits}
-        if "unanswered" in cell.limits:
-            numbers["unanswered"] = 0.0
-        assert not compare.checks(numbers, cell.limits)[0]
+    readings = cell.driver.controls(session, outputs)
+    assert set(readings) == set(CONTROLS)
+    for numbers in readings.values():
+        assert control_fails(numbers, cell.limits), readings
