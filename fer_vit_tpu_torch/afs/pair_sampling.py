@@ -29,6 +29,17 @@ def sample_pair_indices(generator: torch.Generator, n: int, batch: int
     return src, (src + offset) % n
 
 
+def draw_pairs(generator: torch.Generator, latents: torch.Tensor,
+               batch: int):
+    """One step's pairs from the (N, L, D) ``latents``: ``(w_src, w_tgt,
+    src_idx, tgt_idx)``, the indices drawn on the host
+    (:func:`sample_pair_indices`), the codes gathered on the latents'
+    device. The trainer's ``run_epoch`` draws every step's pairs so."""
+    src, tgt = sample_pair_indices(generator, len(latents), batch)
+    return (latents[src.to(latents.device)], latents[tgt.to(latents.device)],
+            src, tgt)
+
+
 @dataclasses.dataclass
 class PairLatentStore:
     """A latent store and, when the files carry them, the source image
@@ -63,7 +74,4 @@ class PairLatentStore:
     def sample_batch(self, generator: torch.Generator, batch: int, device):
         """-> (w_src, w_tgt, src_idx, tgt_idx); the latents on ``device``,
         the indices on the host."""
-        src, tgt = sample_pair_indices(generator, len(self), batch)
-        latents = self.device_latents(device)
-        return (latents[src.to(latents.device)],
-                latents[tgt.to(latents.device)], src, tgt)
+        return draw_pairs(generator, self.device_latents(device), batch)

@@ -27,6 +27,17 @@ and the JSON strings ``log``, ``best_loss``, ``log_history``);
 ``interop/from_jax.py::read_style_extractor_checkpoint`` reads the JAX
 trainer's msgpack ones.
 
+The step's phases open profiler spans (:func:`fer_vit_tpu_torch.utils.
+trace.span`, no-ops unless a profiler runs): ``afs.extract`` (the three h
+calls), ``afs.decode`` (G(w_new), with its graph), ``afs.provider``
+(provider A's two ``no_grad`` decodes), ``afs.loss`` (``AFSLoss``),
+``afs.backward`` and ``afs.optimizer`` (the clip and Adam). Autograd
+launches the backward's kernels from its own device thread, so a reader
+ties them to ``afs.backward`` by its time, not by its thread. The step
+function's ``stats()`` counts the training ``steps`` and the
+``generator_images`` decoded (3 x batch a step with provider A, 1 x with
+B, and the eval steps' decodes too).
+
 Usage:
     python -m fer_vit_tpu_torch.afs.train_style_extractor \\
         --latent_dir latents/train --psp_path psp_ffhq.pt \\
@@ -50,8 +61,7 @@ import torch
 
 from fer_vit_tpu_torch.afs.image_provider import DiskImageProvider
 from fer_vit_tpu_torch.afs.losses import AFSLoss
-from fer_vit_tpu_torch.afs.pair_sampling import (PairLatentStore,
-                                                 sample_pair_indices)
+from fer_vit_tpu_torch.afs.pair_sampling import PairLatentStore, draw_pairs
 from fer_vit_tpu_torch.afs.style_extractor import StyleExtractor
 from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
 from fer_vit_tpu_torch.encoders.arcface import convert_arcface_checkpoint
@@ -66,6 +76,7 @@ from fer_vit_tpu_torch.interop.from_jax import (arcface_state_dict_from_jax,
                                                 stylegan2_state_dict_from_jax)
 from fer_vit_tpu_torch.interop.torch_state import torch_load
 from fer_vit_tpu_torch.train.harness import clip_grad_global_norm_
+from fer_vit_tpu_torch.utils.trace import span
 
 # the ArcFace trunk the loaders build (IR-SE50, as model_ir_se50.pth)
 ARCFACE_PLAN = IR_SE_50_PLAN
@@ -146,29 +157,38 @@ def make_train_step(h: StyleExtractor, gen: Generator, criterion: AFSLoss,
     """(step, eval_step). ``step(lr, w_src, w_tgt, img_src, img_tgt)``
     takes one optimizer step on h and returns the loss and metrics as
     device tensors; ``eval_step(w_src, w_tgt, img_src, img_tgt)`` runs h
-    in eval mode. Provider A ignores the images (None)."""
+    in eval mode. Provider A ignores the images (None). Both carry
+    ``stats()``: ``{"steps", "generator_images"}`` so far."""
     params = list(h.parameters())
+    counts = {"steps": 0, "generator_images": 0}
 
     def decode(w):
+        counts["generator_images"] += w.shape[0]
         img, _ = gen([w], input_is_latent=True, randomize_noise=False)
         return face_pool(img, 256).float()
 
     def forward(w_src, w_tgt, img_src, img_tgt):
-        w_sty_src = h(w_src)
-        w_sty_tgt = h(w_tgt)
-        w_new = (w_src - w_sty_src) + w_sty_tgt
-        w_sty_new = h(w_new)
-        img_gen = decode(w_new)
+        with span("afs.extract"):
+            w_sty_src = h(w_src)
+            w_sty_tgt = h(w_tgt)
+            w_new = (w_src - w_sty_src) + w_sty_tgt
+            w_sty_new = h(w_new)
+        with span("afs.decode"):
+            img_gen = decode(w_new)
         if use_provider_a:
-            with torch.no_grad():
+            with span("afs.provider"), torch.no_grad():
                 img_src, img_tgt = decode(w_src), decode(w_tgt)
-        return criterion(img_gen, img_src, img_tgt, w_sty_new, w_sty_tgt)
+        with span("afs.loss"):
+            return criterion(img_gen, img_src, img_tgt, w_sty_new,
+                             w_sty_tgt)
 
     def step(lr_now, w_src, w_tgt, img_src=None, img_tgt=None):
         h.train()
+        counts["steps"] += 1
         loss, metrics = forward(w_src, w_tgt, img_src, img_tgt)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("afs.backward"):
+            loss.backward()
         if debug_nans:
             bad = [n for n, p in h.named_parameters()
                    if not bool(torch.isfinite(p.grad).all())]
@@ -176,10 +196,11 @@ def make_train_step(h: StyleExtractor, gen: Generator, criterion: AFSLoss,
                 raise FloatingPointError(
                     f"non-finite loss ({float(loss.detach())}) or gradients of "
                     f"{bad[:5]}")
-        clip_grad_global_norm_(params, 1.0)
-        for group in optimizer.param_groups:
-            group["lr"] = lr_now
-        optimizer.step()
+        with span("afs.optimizer"):
+            clip_grad_global_norm_(params, 1.0)
+            for group in optimizer.param_groups:
+                group["lr"] = lr_now
+            optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
@@ -187,6 +208,7 @@ def make_train_step(h: StyleExtractor, gen: Generator, criterion: AFSLoss,
         h.eval()
         return forward(w_src, w_tgt, img_src, img_tgt)
 
+    step.stats = eval_step.stats = lambda: dict(counts)
     return step, eval_step
 
 
@@ -216,8 +238,8 @@ def run_epoch(step_fn: Callable, pair_store: PairLatentStore,
     latents = pair_store.device_latents(device)
     totals = torch.zeros(4, dtype=torch.float64, device=device)
     for _ in range(steps):
-        src_idx, tgt_idx = sample_pair_indices(generator, n, batch_size)
-        w_src, w_tgt = latents[src_idx.to(device)], latents[tgt_idx.to(device)]
+        w_src, w_tgt, src_idx, tgt_idx = draw_pairs(generator, latents,
+                                                    batch_size)
         img_src = img_tgt = None
         if disk_provider is not None:
             paths = pair_store.img_paths

@@ -13,7 +13,10 @@ trained with:
 * the fused leaky ReLU (bias, lrelu(0.2), times sqrt(2));
 * noise from the stored buffers (``randomize_noise=False``, the path AFS
   uses) or fresh draws from a ``torch.Generator``;
-* the ToRGB skip chain.
+* the ToRGB skip chain;
+* a profiler span per resolution block (``sg2.r4`` ... ``sg2.r1024``, the
+  block's convs and its ToRGB; :func:`fer_vit_tpu_torch.utils.trace.span`,
+  a no-op unless a profiler runs).
 
 Modules carry rosinality's names (``style.{1..8}``, ``input.input``,
 ``conv1.conv.*``, ``convs.{i}``, ``to_rgbs.{i}``, ``noises.noise_{i}`` and
@@ -35,9 +38,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from fer_vit_tpu_torch.core.dtypes import cast_once, compute_dtype
+from fer_vit_tpu_torch.utils.trace import span
 
 BLUR_KERNEL = (1, 3, 3, 1)
 SQRT2 = math.sqrt(2.0)
+# the span of each resolution block, by its side
+BLOCK_SPANS = {2 ** i: f"sg2.r{2 ** i}" for i in range(2, 11)}
 
 
 def make_blur_kernel(k: Sequence[int] = BLUR_KERNEL,
@@ -330,16 +336,19 @@ class Generator(nn.Module):
                      for n in stored]
         else:
             noise = stored
-        const = self.input.input.permute(0, 2, 3, 1).to(dt)
-        out = const.expand(b, -1, -1, -1)
-        out = self.conv1(out, latent[:, 0], noise[0])
-        skip = self.to_rgb1(out, latent[:, 1])
-        i = 1
+        with span(BLOCK_SPANS[4]):
+            const = self.input.input.permute(0, 2, 3, 1).to(dt)
+            out = const.expand(b, -1, -1, -1)
+            out = self.conv1(out, latent[:, 0], noise[0])
+            skip = self.to_rgb1(out, latent[:, 1])
+        i, side = 1, 4
         for conv_up, conv, to_rgb in zip(self.convs[::2], self.convs[1::2],
                                          self.to_rgbs):
-            out = conv_up(out, latent[:, i], noise[i])
-            out = conv(out, latent[:, i + 1], noise[i + 1])
-            skip = to_rgb(out, latent[:, i + 2], skip)
+            side *= 2
+            with span(BLOCK_SPANS[side]):
+                out = conv_up(out, latent[:, i], noise[i])
+                out = conv(out, latent[:, i + 1], noise[i + 1])
+                skip = to_rgb(out, latent[:, i + 2], skip)
             i += 2
         return skip, (latent if return_latents else None)
 

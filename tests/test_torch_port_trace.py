@@ -37,6 +37,9 @@ SERVE_SPANS = ("serve.put", "serve.forward", "serve.preprocess",
                "serve.drain")
 PSP_SPANS = ("psp.trunk", "psp.fpn", "psp.heads")
 BATCHER_SPANS = ("serve.collect", "serve.stack", "serve.answer")
+AFS_SPANS = ("afs.extract", "afs.decode", "afs.provider", "afs.loss",
+             "afs.backward", "afs.optimizer")
+GENERATOR_SPANS = tuple(f"sg2.r{2 ** i}" for i in range(2, 11))
 
 
 def _latent_predictor(batch_size=2):
@@ -162,14 +165,19 @@ def test_batcher_spans_come_from_its_own_thread(predictors):
 
 
 def test_no_span_name_begins_with_a_benchmark_prefix():
-    """Every span the package opens, found in its sources, is one of the
-    serving path's, and none begins with a name the benchmark's readers
-    and hooks match ranges by (``device_s_in("encoder")`` would count a
-    span called ``encoder...``)."""
-    found = set()
+    """Every span the package opens, found in its sources (the
+    generator's by its ``BLOCK_SPANS``), is one of the serving path's, the
+    AFS step's or the generator's, and none begins with a name the
+    benchmark's readers and hooks match ranges by
+    (``device_s_in("encoder")`` would count a span called
+    ``encoder...``)."""
+    from fer_vit_tpu_torch.encoders.stylegan2 import BLOCK_SPANS
+
+    found = set(BLOCK_SPANS.values())
     for path in PKG.rglob("*.py"):
         found |= set(re.findall(r'\bspan\(\s*"([^"]+)"', path.read_text()))
-    assert found == set(SERVE_SPANS + PSP_SPANS + BATCHER_SPANS)
+    assert found == set(SERVE_SPANS + PSP_SPANS + BATCHER_SPANS + AFS_SPANS
+                        + GENERATOR_SPANS)
     assert not [n for n in found if n.startswith(BENCH_PREFIXES)]
 
 
