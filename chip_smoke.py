@@ -27,7 +27,12 @@ Phases, in order; any failure exits non-zero before the result line:
    to L = 256) and the streaming one (``flash_attention``, the rest), at
    ViT-Base's and ViT-Small's shapes, with a bf16 training forward (qkv
    requiring grad; output and gradient against plain autograd), and the
-   wrapper's host-timed ms.
+   wrapper's host-timed ms. Then the StyleGAN2 styled-conv epilogue
+   (``styled_epilogue``, which replaces no TPU kernel): its forward and
+   backward kernels against their plain versions at batch 8 on every styled
+   conv shape of the 1024 px AFS generator in f32 and bf16, and on the bf16
+   operands of 1024 px x 32 and 512 px x 64 channels their device ms beside
+   the plain chain's and the bounds.
 3. latent slice: ``EncoderWrapper`` (pSp over IR-SE50, 256 px, BN folded,
    fused residual units, bf16) feeds ``LatentViT`` (depth 6, 512 wide)
    behind ``Predictor``.
@@ -116,9 +121,10 @@ Phases, in order; any failure exits non-zero before the result line:
    pSp's FFHQ decoder (channel multiplier 2), seeded, written as a
    pSp-format ``.pt`` and turned into the JAX layout's ``.npz`` by the
    port's ``convert_stylegan2`` CLI (bit for bit); its forward at batch 8
-   in bf16 (ms, images/s, peak memory) and the card in f32 and bf16
-   against the CPU in f32 on 2 w+; IR-SE50 ArcFace and LPIPS-alex at batch
-   8, card against CPU (no kernel launched); ``train_style_extractor``
+   in bf16 (ms, images/s, peak memory, 17 epilogue launches a forward)
+   and the card in f32 and bf16 against the CPU in f32 on 2 w+; IR-SE50
+   ArcFace and LPIPS-alex at batch 8, card against CPU (no K1 or K2
+   launched); ``train_style_extractor``
    with provider A on the 112 val w+ (14 steps an epoch, validated on 48
    train w+) for 2 epochs, resumed for a third, and provider B for 1 epoch
    on the face directory (the experiment directory's files and keys,
@@ -181,9 +187,10 @@ HTTP, bulk, exported, mesh and training paths, and phase 12's study
 variants and two-platform artifact halves), phase
 5's batches and images, the zoo runs' steps/s, phase 9's rates and
 seconds, phase 10's, 11's and 12's readings, and the phase seconds. The line
-before the last is a JSON object listing the four kernels
+before the last is a JSON object listing the five kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
-``flash_attention``) with their launches summed over the main paths, times,
+``flash_attention``, ``styled_epilogue``) with their launches summed over
+the main paths (the epilogue's, forward and backward, over phase 10), times,
 bound and error; the last line is ``{"ok": true, "device": {...}}``. The script
 needs a CUDA device and the repository around it; without either it exits
 non-zero and prints no result.
@@ -967,6 +974,143 @@ def phase_attention(torch) -> dict:
     return out
 
 
+# -- phase 2: the styled-conv epilogue ----------------------------------------
+
+# Every (side, channels) pair of the AFS generator's styled convs at 1024
+# px, checked at the trainer's batch; the two that hold most of its bytes
+# are then timed, on the very operands just checked.
+EPILOGUE_SIDES = ((4, 512), (8, 512), (16, 512), (32, 512), (64, 512),
+                  (128, 256), (256, 128), (512, 64), (1024, 32))
+EPILOGUE_TIME_SIDES = ((1024, 32), (512, 64))
+
+
+def epilogue_operands(torch, B, side, channels, dtype, seed):
+    """c, demod, the stored noise plane (shared over the batch, as AFS
+    decodes), its weight, the bias and an output gradient, drawn on the
+    card."""
+    kw = {"generator": torch.Generator("cuda").manual_seed(seed),
+          "device": "cuda"}
+    c = torch.randn(B, side, side, channels, **kw).to(dtype)
+    demod = torch.rand(B, channels, **kw) + 0.5
+    n = torch.randn(1, side, side, 1, **kw)
+    w = torch.tensor([0.3], device="cuda")
+    b = 0.5 * torch.randn(channels, **kw)
+    grad = torch.randn(B, side, side, channels, **kw).to(dtype)
+    return c, demod, n, w, b, grad
+
+
+def epilogue_bound_ms(B, side, channels, itemsize=2):
+    """(forward, backward) least ms: bytes at the HBM rate. Forward: c read
+    and y written once, demod, bias and the noise plane read once.
+    Backward: g and c read and grad_c written once, demod and bias and the
+    noise read, grad_demod written."""
+    act = B * side * side * channels * itemsize
+    small = 4 * (B * channels + channels + side * side)
+    return (1e3 * (2 * act + small) / PEAK_BYTES,
+            1e3 * (3 * act + small + 4 * B * channels) / PEAK_BYTES)
+
+
+def check_epilogue(torch, se, ops) -> float:
+    """Both kernels on ``ops`` against the plain versions: y and grad_c
+    within one ulp of the same operations in f32, grad_demod within 2e-5 of
+    each channel's L1 mass (``tests/test_torch_port_cuda.py`` says why), two
+    backward launches bit-identical. Returns y's largest error."""
+    c, demod, n, w, b, g = ops
+    B, side, _, ch = c.shape
+    dt = c.dtype
+    y = se.epilogue_forward_kernel(c, demod, n, w, b)
+    grad_c, grad_d = se.epilogue_backward_kernel(g, c, demod, n, w, b)
+    again = se.epilogue_backward_kernel(g, c, demod, n, w, b)
+    torch.cuda.synchronize()
+    z = se.pre_activation(c, demod, n, w, b)
+    want_y = (se.styled_epilogue_plain(c, demod, n, w, b)
+              if dt == torch.float32 else
+              torch.where(z > 0, z, z * se.SLOPE) * se.SQRT2)
+    want_c, want_d = se.styled_epilogue_backward_plain(g, c, demod, n, w, b)
+    eps = torch.finfo(dt).eps
+    err_y = (y.float() - want_y.float()).abs()
+    err_c = (grad_c.float() - want_c.float()).abs()
+    gz = torch.where(z > 0, 1.0, se.SLOPE) * se.SQRT2 * g.float()
+    l1 = (gz * c.float()).abs().sum(dim=(1, 2))
+    err_d = float(((grad_d - want_d).abs() / (l1 + 1e-6)).max())
+    same = torch.equal(again[0], grad_c) and torch.equal(again[1], grad_d)
+    ok = (bool((err_y <= eps * want_y.float().abs()).all())
+          and bool((err_c <= eps * want_c.float().abs()).all())
+          and err_d <= 2e-5 and same)
+    log(f"check {se.FORWARD} {str(dt)[6:]} batch {B} {side}x{side}x{ch}, "
+        f"plan {se.plan(ch, dt)}: y max abs err {float(err_y.max()):.3e}, "
+        f"grad_c {float(err_c.max()):.3e}, grad_demod {err_d:.3e} of its L1 "
+        f"mass; deterministic {same}")
+    check(ok, f"{se.FORWARD}: the kernels disagree with the plain version "
+              f"at {side}x{side}x{ch} {dt}")
+    return float(err_y.max())
+
+
+def phase_styled_epilogue(torch) -> dict:
+    """The epilogue's two kernels against the plain versions on the card (f32
+    and bf16, batch 8, every styled conv shape of the 1024 px generator,
+    noise shared over the batch; :func:`check_epilogue`). Then device ms by
+    CUDA events at batch 8, bf16, on the operands just checked: the kernels,
+    the plain chain (forward, and autograd's backward through it) and the
+    bounds."""
+    from fer_vit_tpu_torch.ops import styled_epilogue as se
+
+    name = se.FORWARD
+    max_err = 0.0
+    timed = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for i, (side, ch) in enumerate(EPILOGUE_SIDES):
+            ops = epilogue_operands(torch, AFS_BATCH, side, ch, dt, 300 + i)
+            err = check_epilogue(torch, se, ops)
+            if dt == torch.bfloat16:
+                max_err = max(max_err, err)
+                if (side, ch) in EPILOGUE_TIME_SIDES:
+                    timed[side, ch] = ops
+            del ops
+
+    rows = []
+    for side, ch in EPILOGUE_TIME_SIDES:
+        c, demod, n, w, b, g = timed.pop((side, ch))
+        cg = c.clone().requires_grad_(True)
+        dg = demod.clone().requires_grad_(True)
+        y_plain = se.styled_epilogue_plain(cg, dg, n, w, b)
+        fns = {
+            "fwd": lambda: se.epilogue_forward_kernel(c, demod, n, w, b),
+            "bwd": lambda: se.epilogue_backward_kernel(g, c, demod, n, w, b),
+            "plain_fwd": lambda: se.styled_epilogue_plain(c, demod, n, w, b),
+            "plain_bwd": lambda: torch.autograd.grad(
+                y_plain, (cg, dg), g, retain_graph=True)}
+        turns = {k: [] for k in fns}
+        for k in ("fwd", "bwd", "plain_fwd", "plain_bwd", "plain_bwd",
+                  "plain_fwd", "bwd", "fwd"):
+            turns[k].append(time_ms(torch, fns[k], reps=20, warmup=3))
+        t = {k: sum(v) / len(v) for k, v in turns.items()}
+        bound_f, bound_b = epilogue_bound_ms(AFS_BATCH, side, ch)
+        row = {"shape": f"{side}x{side}x{ch}", **t, "bound_fwd": bound_f,
+               "bound_bwd": bound_b}
+        rows.append(row)
+        log(f"time {name} bf16 batch {AFS_BATCH} {row['shape']}, device ms "
+            f"per call (CUDA events, mean of 2 turns): forward {t['fwd']:.4f}"
+            f" (bound {bound_f:.4f}, {100 * bound_f / t['fwd']:.1f} % of "
+            f"it; plain chain {t['plain_fwd']:.4f}, "
+            f"{t['plain_fwd'] / t['fwd']:.2f}x), backward {t['bwd']:.4f} "
+            f"(bound {bound_b:.4f}, {100 * bound_b / t['bwd']:.1f} %; "
+            f"autograd through the plain chain {t['plain_bwd']:.4f}, "
+            f"{t['plain_bwd'] / t['bwd']:.2f}x)")
+        del cg, dg, y_plain, c, g
+    total = {k: sum(r[k] for r in rows) for k in
+             ("fwd", "bwd", "plain_fwd", "plain_bwd", "bound_fwd",
+              "bound_bwd")}
+    shapes = ", ".join(r["shape"] for r in rows)
+    return {name: {
+        "ms": total["fwd"] + total["bwd"],
+        "plain_ms": total["plain_fwd"] + total["plain_bwd"],
+        "bound_ms": total["bound_fwd"] + total["bound_bwd"],
+        "bound_by": "bytes", "max_abs_err": max_err, "rows": rows,
+        "timed": f"device ms by CUDA events, forward plus backward at batch "
+                 f"{AFS_BATCH} bf16, {shapes} summed, mean of 2 turns"}}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -997,6 +1141,7 @@ def main() -> int:
     dev_info = timed("1 device", phase_device, torch)
     kernels = timed("2 K1", phase_kernels, torch)
     kernels.update(timed("2 K2", phase_attention, torch))
+    kernels.update(timed("2 styled epilogue", phase_styled_epilogue, torch))
     # each kernel's launches on every main path, each read just after its
     # run with the counts set to 0 just before it
     paths = {"latent slice": timed("3 latent slice", phase_slice, torch,
@@ -1030,6 +1175,8 @@ def main() -> int:
                   **study["launches"]})
     launches = {name: sum(p[name] for p in paths.values())
                 for name in KERNEL_META}
+    # the epilogue runs on the AFS paths only, counted apart (phase 10)
+    launches["styled_epilogue"] = afs["epilogue_launches"]
     print(json.dumps({"launches_by_path": paths,
                       "production": {k: prod["production"][k]
                                      for k in ("batches", "images")},
@@ -1077,10 +1224,22 @@ KERNEL_META = {
 }
 
 
+# Kernels that replace no TPU kernel; their launches are counted apart from
+# the four above, so the paths' checks of those counts keep their meaning.
+FUSION_META = {
+    "styled_epilogue": {
+        "route": "cuda",
+        "source": "fer_vit_tpu_torch/csrc/styled_epilogue.cu",
+        "replaces": "no TPU kernel: XLA's fusion of StyledConv's epilogue "
+                    "(fer_vit_tpu/encoders/stylegan2.py) in the JAX package",
+    },
+}
+
+
 def kernel_entry(name: str, k: dict, launches: dict) -> dict:
     """The kernels line's entry; ``library_ms`` is null where no single
     PyTorch call computes the kernel's function."""
-    entry = {"name": name, **KERNEL_META[name],
+    entry = {"name": name, **{**KERNEL_META, **FUSION_META}[name],
              "launches": launches[name],
              "max_abs_err": k["max_abs_err"], "ms": k["ms"],
              "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -3571,6 +3730,7 @@ AFS_BATCH = 8  # the trainer's default
 AFS_EPOCHS = 2  # then --resume for a third
 AFS_VAL_N = 48  # train w+ written as the validation pack
 AFS_GEN_CHECK = 2  # w+ of phase 5 through the generator on the CPU in f32
+AFS_STYLED_CONVS = 17  # conv1 and two a block from 8 to 1024 px
 AFS_LOCK_SIZE = 256
 AFS_LOCK_BATCH = 4
 AFS_LOCK_STEPS = 3
@@ -3873,10 +4033,13 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
         lpips_state_dict_from_jax, save_npz_variables,
         stylegan2_state_dict_from_jax)
 
+    from fer_vit_tpu_torch.ops import styled_epilogue as se
+
     afs = root / "afs"
     afs.mkdir()
     zero = dict.fromkeys(KERNEL_META, 0)
     out = {"launches": {}}
+    se.reset_launch_counts()
 
     # 1. generator weights: a pSp-format .pt -> the converter CLI -> .npz
     t0 = time.perf_counter()
@@ -3904,6 +4067,7 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
     w8 = torch.from_numpy(val.latents[:AFS_BATCH]).cuda()
     gen = afs_generator(torch, sg_sd, AFS_SIZE, "cuda")
     reset_kernel_counts()
+    epi0 = se.styled_epilogue.kernel_launches[se.FORWARD]
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     with torch.no_grad():
@@ -3911,6 +4075,10 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
         img8 = gen([w8])[0]
     torch.cuda.synchronize()
     out["launches"]["afs generator"] = kernel_counts()
+    epi = se.styled_epilogue.kernel_launches[se.FORWARD] - epi0
+    check(epi == 5 * AFS_STYLED_CONVS,
+          f"afs generator: {epi} epilogue launches in 5 forwards, expected "
+          f"{AFS_STYLED_CONVS} a forward")
     peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
     check(img8.shape == (AFS_BATCH, AFS_SIZE, AFS_SIZE, 3)
           and img8.dtype == torch.bfloat16
@@ -3930,7 +4098,8 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
         f"({res['images_per_s']:.1f} images/s), peak {peak:.2f} GiB above "
         f"its weights; card vs CPU f32 on {AFS_GEN_CHECK} w+: f32 "
         f"{d_f32:.3e} (tol {AFS_GEN_F32_RTOL}), bf16 {d_bf16:.3e} (tol "
-        f"{AFS_GEN_BF16_RTOL}); launches {out['launches']['afs generator']}")
+        f"{AFS_GEN_BF16_RTOL}); launches {out['launches']['afs generator']}"
+        f", {se.FORWARD} {epi // 5} a forward")
     check(out["launches"]["afs generator"] == zero,
           f"afs generator launched {out['launches']['afs generator']}")
     check(d_f32 <= AFS_GEN_F32_RTOL and d_bf16 <= AFS_GEN_BF16_RTOL,
@@ -4056,6 +4225,9 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
           and worst["param"] <= AFS_LOCK_PARAM_ATOL
           and worst["bf16_loss"] <= AFS_LOCK_BF16_RTOL,
           "afs lockstep: the card disagrees with the CPU")
+    out["epilogue_launches"] = se.styled_epilogue.launches
+    log(f"afs: epilogue launches over the phase "
+        f"{se.styled_epilogue.kernel_launches}")
     return out
 
 

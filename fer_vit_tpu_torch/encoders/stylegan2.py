@@ -11,6 +11,9 @@ trained with:
   channels (no grouped conv with the batch folded into the groups);
 * the [1, 3, 3, 1] blur as a depthwise conv (:func:`upfirdn2d`);
 * the fused leaky ReLU (bias, lrelu(0.2), times sqrt(2));
+* each styled conv's demodulation, noise, bias, leaky ReLU and gain as one
+  epilogue (:mod:`fer_vit_tpu_torch.ops.styled_epilogue`: one kernel,
+  forward and backward, on CUDA; the five passes on the CPU);
 * noise from the stored buffers (``randomize_noise=False``, the path AFS
   uses) or fresh draws from a ``torch.Generator``;
 * the ToRGB skip chain;
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fer_vit_tpu_torch.core.dtypes import cast_once, compute_dtype
+from fer_vit_tpu_torch.ops.styled_epilogue import styled_epilogue
 from fer_vit_tpu_torch.utils.trace import span
 
 BLUR_KERNEL = (1, 3, 3, 1)
@@ -144,13 +148,18 @@ class ModulatedConv2d(nn.Module):
 
         return cast_once(self, dt, (self.weight,), make)
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    def modulated_conv(self, x: torch.Tensor, style: torch.Tensor
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The conv of the modulated x (NHWC, in x's dtype) before the
+        demodulation, and the demodulation (B, out) in f32 (None without
+        it)."""
         dt = x.dtype
         w, w2 = self._weights(dt)
         s = self.modulation(style.to(dt))  # (B, in)
+        demod = None
         if self.demodulate:
             # demod[b, o] = rsqrt(sum_{k,k,i} (scale w s[b, i])^2 + 1e-8)
-            demod = torch.rsqrt((s.float() ** 2) @ w2 + 1e-8).to(dt)
+            demod = torch.rsqrt((s.float() ** 2) @ w2 + 1e-8)
         x = (x * s[:, None, None, :]).permute(0, 3, 1, 2)
         if self.upsample:
             out = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
@@ -159,33 +168,31 @@ class ModulatedConv2d(nn.Module):
         else:
             out = F.conv2d(x, w, padding=self.kernel_size // 2)
             out = out.permute(0, 2, 3, 1)
-        if self.demodulate:
-            out = out * demod[:, None, None, :]
-        return out
+        return out, demod
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        out, demod = self.modulated_conv(x, style)
+        if demod is None:
+            return out
+        return out * demod.to(out.dtype)[:, None, None, :]
 
 
 class NoiseInjection(nn.Module):
+    """The noise weight (rosinality's ``noise.weight``); ``StyledConv``
+    applies it in its epilogue."""
+
     def __init__(self):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x: torch.Tensor,
-                noise: Optional[torch.Tensor]) -> torch.Tensor:
-        """x (B, H, W, C); noise broadcastable NHWC (B or 1, H, W, 1)."""
-        if noise is None:
-            return x
-        return x + self.weight.to(x.dtype) * noise.to(x.dtype)
-
 
 class FusedLeakyReLU(nn.Module):
-    """``lrelu(x + bias, 0.2) * sqrt(2)`` over NHWC's last axis."""
+    """The bias of ``lrelu(x + bias, 0.2) * sqrt(2)`` (rosinality's
+    ``activate.bias``); ``StyledConv`` applies it in its epilogue."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(x + self.bias.to(x.dtype), 0.2) * SQRT2
 
 
 class StyledConv(nn.Module):
@@ -199,7 +206,19 @@ class StyledConv(nn.Module):
 
     def forward(self, x: torch.Tensor, style: torch.Tensor,
                 noise: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.activate(self.noise(self.conv(x, style), noise))
+        """The modulated conv, then demodulate, noise, bias, leaky ReLU and
+        gain in one epilogue
+        (:func:`~fer_vit_tpu_torch.ops.styled_epilogue.styled_epilogue`: on
+        the CPU five passes, on CUDA one kernel reading the conv output
+        once)."""
+        out, demod = self.conv.modulated_conv(x, style)
+        if out.is_cuda:
+            # the kernel reads NHWC-contiguous c, as cuDNN gives it save
+            # conv1's at 4 px (its input, the constant, is stored NCHW): a
+            # copy there only. The CPU's chain keeps its layouts.
+            out = out.contiguous()
+        return styled_epilogue(out, demod, noise, self.noise.weight,
+                               self.activate.bias)
 
 
 class ToRGB(nn.Module):

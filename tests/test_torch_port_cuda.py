@@ -10,7 +10,10 @@ card against the CPU, and ``generate_latents`` on a few images with its
 launch counts; the SVM directions and SeFa's eigh on the card against the
 CPU, and the image evaluator's K2 launches; the AFS modules (the StyleGAN2
 generator, ArcFace, LPIPS, the style extractor and a training step)
-against the CPU, with none of the kernels launched; both kernels' custom
+against the CPU, with none of the kernels launched; the StyleGAN2
+styled-conv epilogue's forward and backward kernels against their plain
+versions at the generator's shapes, and one launch a styled conv; both
+kernels' custom
 ops through the dispatcher against their plain versions (with
 ``torch.library.opcheck`` on CUDA tensors), and exported bf16 programs'
 launch counts. Marked
@@ -717,6 +720,183 @@ def test_afs_train_step_card_matches_cpu(smoke):
         assert abs(float(got[k]) - float(ref[k])) <= \
             AFS_STEP_LOSS_RTOL * abs(float(ref[k])), k
     assert float((g_got - g_ref).norm() / g_ref.norm()) <= AFS_STEP_GRAD_RTOL
+
+
+# -- the styled-conv epilogue -------------------------------------------------
+
+# The kernel against the plain versions on the same card. f32: the kernel
+# runs the chain's f32 operations in its order without contraction, so y and
+# grad_c agree to the last bit but for one rounding step (1 ulp). bf16: the
+# kernel rounds once what the plain version computes in f32 from the same
+# bf16 c and g; one ulp of f32 difference may flip that rounding (1 bf16
+# ulp). grad_demod: sums of H * W terms in another order (the kernel's
+# blocks and rows against torch's cascade), within 2e-5 of each channel's L1
+# mass (a summation chain of ~160 adds at 6e-8 each, worst case ~1e-5).
+# Every channel count of the 1024 px generator, so each of the kernels'
+# channel cuts (threads a pixel, pixels a block step) in f32 and bf16, at
+# the smallest and largest side.
+EPI_SIDES = [(4, 512), (64, 512), (128, 256), (256, 128), (512, 64),
+             (1024, 32)]
+EPI_BATCH = 2
+EPI_DEMOD_L1_RTOL = 2e-5
+
+
+def _epilogue_operands(side, channels, noise, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    B = EPI_BATCH
+    c = torch.randn(B, side, side, channels, generator=g)
+    demod = torch.rand(B, channels, generator=g) + 0.5
+    n = {"none": None,
+         "shared": torch.randn(1, side, side, 1, generator=g),
+         "batch": torch.randn(B, side, side, 1, generator=g)}[noise]
+    weight = torch.tensor([0.3])
+    bias = 0.5 * torch.randn(channels, generator=g)
+    grad = torch.randn(B, side, side, channels, generator=g)
+    cuda = [None if t is None else t.cuda()
+            for t in (c, demod, n, weight, bias, grad)]
+    cuda[0], cuda[5] = cuda[0].to(dtype), cuda[5].to(dtype)
+    return cuda
+
+
+def _within_ulps(got, want, dtype):
+    """|got - want| <= one ulp of ``want`` in ``dtype``."""
+    got, want = got.float(), want.float()
+    ulp = torch.finfo(dtype).eps * want.abs()
+    return bool(((got - want).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("noise", ["none", "shared", "batch"])
+@pytest.mark.parametrize("side,channels", EPI_SIDES)
+def test_styled_epilogue_kernel_matches_plain(smoke, side, channels, noise,
+                                              dtype):
+    from fer_vit_tpu_torch.ops import styled_epilogue as se
+
+    dt = getattr(torch, dtype)
+    c, demod, n, weight, bias, g = _epilogue_operands(side, channels, noise,
+                                                      dt)
+    y = se.epilogue_forward_kernel(c, demod, n, weight, bias)
+    grad_c, grad_d = se.epilogue_backward_kernel(g, c, demod, n, weight, bias)
+    torch.cuda.synchronize()
+    z = se.pre_activation(c, demod, n, weight, bias)
+    want_y = torch.where(z > 0, z, z * se.SLOPE) * se.SQRT2
+    if dt == torch.float32:  # the plain chain itself
+        want_y = se.styled_epilogue_plain(c, demod, n, weight, bias)
+    want_c, want_d = se.styled_epilogue_backward_plain(g, c, demod, n,
+                                                       weight, bias)
+    assert y.dtype == grad_c.dtype == dt and grad_d.dtype == torch.float32
+    assert _within_ulps(y, want_y, dt)
+    assert _within_ulps(grad_c, want_c, dt)
+    gz = torch.where(z > 0, 1.0, se.SLOPE) * se.SQRT2 * g.float()
+    l1 = (gz * c.float()).abs().sum(dim=(1, 2))
+    assert bool(((grad_d - want_d).abs()
+                 <= EPI_DEMOD_L1_RTOL * l1 + 1e-6).all())
+
+
+def test_styled_epilogue_kernels_are_deterministic_and_counted(smoke):
+    from fer_vit_tpu_torch.ops import styled_epilogue as se
+
+    c, demod, n, weight, bias, g = _epilogue_operands(256, 128, "shared",
+                                                      torch.bfloat16)
+    se.reset_launch_counts()
+    runs = [(se.epilogue_forward_kernel(c, demod, n, weight, bias),
+             *se.epilogue_backward_kernel(g, c, demod, n, weight, bias))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert se.styled_epilogue.kernel_launches == {se.FORWARD: 2,
+                                                  se.BACKWARD: 2}
+
+
+def test_styled_epilogue_autograd_op_on_the_card(smoke):
+    """Through ``styled_epilogue``: the forward kernel, then the backward
+    kernel's gradients to c and demod."""
+    from fer_vit_tpu_torch.ops import styled_epilogue as se
+
+    c, demod, n, weight, bias, g = _epilogue_operands(64, 512, "batch",
+                                                      torch.bfloat16, seed=1)
+    c.requires_grad_(True)
+    demod.requires_grad_(True)
+    y = se.styled_epilogue(c, demod, n, weight, bias)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(y, se.epilogue_forward_kernel(c.detach(), demod, n,
+                                                     weight, bias))
+    want_c, want_d = se.epilogue_backward_kernel(g, c.detach(),
+                                                 demod.detach(), n, weight,
+                                                 bias)
+    assert torch.equal(c.grad, want_c) and torch.equal(demod.grad, want_d)
+
+
+def test_styled_epilogue_refuses_what_the_kernel_does_not_take(smoke):
+    """On CUDA the wrapper launches the kernel or raises: a strided c,
+    channels off 16 bytes, f16, and a c or g off 16-byte alignment never
+    reach the plain version or a faulting load."""
+    from fer_vit_tpu_torch.ops import styled_epilogue as se
+
+    c, demod, n, weight, bias, g = _epilogue_operands(4, 512, "shared",
+                                                      torch.bfloat16)
+
+    def misaligned(t):  # contiguous, one element past an aligned start
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16
+        return out
+
+    with pytest.raises(ValueError, match="16-byte-aligned c"):
+        se.styled_epilogue(misaligned(c), demod, n, weight, bias)
+    with pytest.raises(ValueError, match="16-byte-aligned g"):
+        se.epilogue_backward_kernel(misaligned(g), c, demod, n, weight, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        se.styled_epilogue(c.transpose(1, 2), demod, n, weight, bias)
+    with pytest.raises(ValueError, match="multiple of"):
+        se.styled_epilogue(c[..., :508].contiguous(), demod[:, :508], n,
+                           weight, bias[:508])
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        se.styled_epilogue(c.half(), demod, n, weight, bias)
+
+
+def test_generator_launches_one_epilogue_a_styled_conv(smoke, monkeypatch):
+    """A 64 px generator (9 styled convs) in bf16: 9 forward launches a
+    forward, and 9 backward launches for a gradient to w+; K1 and K2 stay at
+    0 (``_afs_counts``). Every styled conv's output reaches the kernel
+    NHWC-contiguous as cuDNN gives it, save conv1's (4 px), which
+    ``StyledConv`` copies."""
+    from fer_vit_tpu_torch.encoders import stylegan2 as sg
+    from fer_vit_tpu_torch.ops import styled_epilogue as se
+
+    gen = _afs_generator(smoke, 64, "cuda", None)
+    w = torch.randn(2, 10, 512, generator=torch.Generator().manual_seed(3)
+                    ).cuda()
+    layouts = []
+    inner = sg.ModulatedConv2d.modulated_conv
+
+    def modulated_conv(self, x, style):
+        out, demod = inner(self, x, style)
+        if demod is not None:
+            layouts.append((out.shape[1], out.is_contiguous()))
+        return out, demod
+
+    monkeypatch.setattr(sg.ModulatedConv2d, "modulated_conv",
+                        modulated_conv)
+    _afs_reset()
+    se.reset_launch_counts()
+    with torch.no_grad():
+        gen([w])
+    torch.cuda.synchronize()
+    assert se.styled_epilogue.kernel_launches == {se.FORWARD: 9,
+                                                  se.BACKWARD: 0}
+    assert layouts == [(4, False)] + [(s, True) for s in (8, 8, 16, 16, 32,
+                                                          32, 64, 64)]
+    w.requires_grad_(True)
+    gen([w])[0].float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert se.styled_epilogue.kernel_launches == {se.FORWARD: 18,
+                                                  se.BACKWARD: 9}
+    assert bool(torch.isfinite(w.grad).all())
+    assert set(_afs_counts().values()) == {0}
 
 
 # -- the kernels as custom ops, and exported programs on the card -------------
