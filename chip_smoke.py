@@ -2446,10 +2446,11 @@ def phase_serving(torch, dev_info, root: Path, latent_ckpt: Path,
     from fer_vit_tpu_torch.interop.from_jax import (load_npz_variables,
                                                     psp_state_dict_from_jax,
                                                     save_npz_variables)
-    from fer_vit_tpu_torch.serve import Predictor, _collect_inputs
+    from fer_vit_tpu_torch.data.image_pipeline import collect_inputs
+    from fer_vit_tpu_torch.serve import Predictor
 
     val = root / "val"
-    paths = _collect_inputs([str(val)])
+    paths = collect_inputs([str(val)])
     check(len(paths) == 7 * PROD_VAL_PER_CLASS, f"{len(paths)} val images")
     # a separate input directory: three val images and one corrupt file
     bad_dir = root / "with_corrupt"
@@ -2860,7 +2861,7 @@ def phase_zoo(torch, dev_info, root: Path) -> dict:
     """The zoo's trainer CLIs on phase 5's packs and faces, each run's last
     checkpoint served, and the LatentCNN lockstep check."""
     from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
-    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
+    from fer_vit_tpu_torch.models.kinds import model_from_config
     from fer_vit_tpu_torch.interop.from_jax import psp_state_dict_from_jax
     from fer_vit_tpu_torch.models import create_hybrid_latent_vit
     from fer_vit_tpu_torch.serve import Predictor
@@ -3373,6 +3374,7 @@ def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
     from fer_vit_tpu_torch.data.latent_store import LatentStore
     from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
     from fer_vit_tpu_torch.eval import evaluate_image_vit, evaluate_model
+    from fer_vit_tpu_torch.interop.checkpoints import load_model
     from fer_vit_tpu_torch.eval.visualize_leam_weights import (
         extract_leam_weights)
     from fer_vit_tpu_torch.interop.export_torch_checkpoint import (
@@ -3412,7 +3414,7 @@ def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
             check(all((o / f"attention_sample_{i}.png").exists()
                       for i in range(EVAL_VIS)) == attention,
                   f"latent eval {name}: attention figures")
-        model, _ = evaluate_model.load_model(str(ckpt))
+        model, _ = load_model(str(ckpt))
         _, _, cm = evaluate_model.evaluate(model, val, EVAL_BATCH, CARD)
         check(cm.shape == (7, 7) and int(cm.sum()) == n_val
               and cm.sum(axis=1).tolist() == [PROD_VAL_PER_CLASS] * 7
@@ -3430,10 +3432,10 @@ def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
                                root / "seeded_eval.pt")
     res = zoo_card_vs_cpu(
         torch, "latent eval, seeded LatentViT",
-        lambda dtype, device: evaluate_model.load_model(
+        lambda dtype, device: load_model(
             str(seeded), dtype=dtype)[0], val.latents, EVAL_BF16_PROB_TOL)
     check_seeded_spread("latent eval, seeded LatentViT", res)
-    model, _ = evaluate_model.load_model(str(latent_ckpt))
+    model, _ = load_model(str(latent_ckpt))
     model.to(CARD).eval()
     xs = torch.from_numpy(val.latents).to(CARD)
     rate, text = pass_rate(n_val, timed_passes(
@@ -3484,8 +3486,8 @@ def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
                                "config", "run_id"},
               f"export {name}: payload {sorted(payload)}")
         with torch.inference_mode():
-            orig = evaluate_model.load_model(str(ckpt))[0].to(CARD).eval()(xs)
-            back = evaluate_model.load_model(str(ref))[0].to(CARD).eval()(xs)
+            orig = load_model(str(ckpt))[0].to(CARD).eval()(xs)
+            back = load_model(str(ref))[0].to(CARD).eval()(xs)
             served = Predictor.from_checkpoint(str(ref), psp=psp).model(xs)
         check(torch.equal(orig, back) and torch.equal(orig, served),
               f"export {name}: logits after the round trip differ (max "
@@ -3576,7 +3578,7 @@ def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
     for name, dtype, dev in (("bf16", None, CARD),
                              ("f32", torch.float32, CARD),
                              ("cpu", torch.float32, "cpu")):
-        net = evaluate_model.load_model(str(seeded), dtype=dtype)[0]
+        net = load_model(str(seeded), dtype=dtype)[0]
         net = net.to(dev).eval()
         if dev == CARD:
             torch.cuda.synchronize()
@@ -3641,9 +3643,9 @@ def phase_eval(torch, dev_info, root: Path, latent_ckpt: Path,
     from PIL import Image
 
     from fer_vit_tpu_torch.models import create_timm_vit
-    from fer_vit_tpu_torch.serve import _collect_inputs
+    from fer_vit_tpu_torch.data.image_pipeline import collect_inputs
 
-    files = _collect_inputs([str(root / "val")])[::SERVE_CPU_STRIDE]
+    files = collect_inputs([str(root / "val")])[::SERVE_CPU_STRIDE]
     vit_fer_ckpt = root / "vit_fer" / "last_model.pt"
     reset_kernel_counts()
     predict = analyze.create_fer2013_inference_function(str(vit_fer_ckpt))
@@ -4478,11 +4480,11 @@ def phase_scaleout(torch, dev_info, root: Path) -> dict:
     from fer_vit_tpu_torch.export import export_predictor
     from fer_vit_tpu_torch.interop.from_jax import (load_npz_variables,
                                                     psp_state_dict_from_jax)
-    from fer_vit_tpu_torch.serve import (Predictor, _collect_inputs,
-                                         _decode_request_image,
+    from fer_vit_tpu_torch.data.image_pipeline import collect_inputs
+    from fer_vit_tpu_torch.serve import (Predictor, _decode_request_image,
                                          _mesh_from_flag)
 
-    paths = _collect_inputs([str(root / "val")])
+    paths = collect_inputs([str(root / "val")])
     bodies = [Path(p).read_bytes() for p in paths]
     psp = EncoderWrapper(psp_state_dict_from_jax(
         load_npz_variables(str(root / "psp_seeded.npz"))))

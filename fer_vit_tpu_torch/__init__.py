@@ -23,13 +23,14 @@ Package map:
 * :mod:`fer_vit_tpu_torch.train`    — losses, schedulers, the training
   harness and fit loop, the ``train_latent_vit`` and ``train_image_vit``
   CLIs
-* :mod:`fer_vit_tpu_torch.eval`     — the evaluator CLIs and checkpoint
-  loaders, the LEAM figure, the learning-curve and data-fraction plots
+* :mod:`fer_vit_tpu_torch.eval`     — the evaluator CLIs, the LEAM figure,
+  the learning-curve and data-fraction plots
 * :mod:`fer_vit_tpu_torch.analysis` — SVM expression directions and SeFa
 * :mod:`fer_vit_tpu_torch.utils`    — metrics and the experiment-dir logger
 * :mod:`fer_vit_tpu_torch.interop`  — weights from the JAX package's variables
   and its trainers' msgpack checkpoints; reference-format torch
-  checkpoints in and out
+  checkpoints in and out; ``interop.checkpoints``, the one loader of a
+  trained classifier's checkpoint of any of the three file types
 * :mod:`fer_vit_tpu_torch.serve`    — ``Predictor`` (latent and image routes,
   from a checkpoint or an exported artifact, over files and packs, on one
   device or a mesh), the predict CLI and the HTTP server

@@ -19,6 +19,7 @@ import torch
 from fer_vit_tpu_torch import EMOTION_NAMES
 from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
 from fer_vit_tpu_torch.data.image_pipeline import IMAGE_EXTS
+from fer_vit_tpu_torch.interop.checkpoints import is_torch_checkpoint
 
 
 def analyze_fer2013_dataset(root_dir: str, splits=("train", "test")
@@ -95,9 +96,7 @@ def _vit_fer_state_dict(model_path: str) -> Dict[str, torch.Tensor]:
     (``torch.save`` of ``{epoch, state: {model, optimizer}, ...}``) or the
     JAX trainer's (Flax msgpack of ``{epoch, state: <TrainState bytes>,
     ...}``)."""
-    from fer_vit_tpu_torch.eval.evaluate_model import _is_torch_checkpoint
-
-    if _is_torch_checkpoint(model_path):
+    if is_torch_checkpoint(model_path):
         payload = torch.load(model_path, map_location="cpu",
                              weights_only=True)
         return payload["state"]["model"]

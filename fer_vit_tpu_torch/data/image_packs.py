@@ -176,9 +176,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(args) -> dict:
-    from fer_vit_tpu_torch.serve import _collect_inputs
+    from fer_vit_tpu_torch.data.image_pipeline import collect_inputs
 
-    paths = _collect_inputs(args.input)
+    paths = collect_inputs(args.input)
     if not paths:
         raise SystemExit("no images found under --input")
     manifest = write_image_pack(paths, args.output, size=args.size,

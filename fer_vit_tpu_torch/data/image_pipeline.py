@@ -8,6 +8,8 @@ colour jitter 0.2/0.2/0.2/0.1, affine translate +-0.1 and scale 0.9-1.1; a
 corrupt file becomes a black image, :125-130), with the JAX package's
 constants and order of operations:
 
+* :func:`collect_inputs` lists the image files under given paths, the
+  command lines' ``--input``.
 * :class:`ImageStore` decodes a class-dir tree once into one uint8 array;
   the trainer keeps it on the device for the whole run.
 * Rotation, translation and scale make one inverse-mapped affine warp with
@@ -29,7 +31,7 @@ import dataclasses
 import math
 import os
 from collections import Counter
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +42,23 @@ from fer_vit_tpu_torch.encoders.psp import resize_images
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
+
+
+def collect_inputs(inputs: Sequence[str]) -> List[str]:
+    """Files and/or directories (recursive) -> ordered unique image paths:
+    the predict CLI's and ``image_packs``' ``--input``."""
+    out: List[str] = []
+    for item in inputs:
+        if os.path.isdir(item):
+            for root, dirs, files in os.walk(item):
+                dirs.sort()  # deterministic traversal across filesystems
+                out += [os.path.join(root, name) for name in sorted(files)
+                        if name.lower().endswith(IMAGE_EXTS)]
+        elif os.path.isfile(item):
+            out.append(item)
+        else:
+            raise FileNotFoundError(f"--input entry not found: {item}")
+    return list(dict.fromkeys(out))
 
 
 @dataclasses.dataclass

@@ -4,7 +4,8 @@ set.
 Port of ``fer_vit_tpu/eval/evaluate_image_vit.py`` (reference:
 eval/evaluate_image_vit.py): the size presets (tiny/small/base) override the
 raw dims saved in the config, and ``use_pretrained`` builds the timm
-architecture. The images are decoded once by
+architecture (:mod:`fer_vit_tpu_torch.models.kinds`). The images are
+decoded once by
 :class:`~fer_vit_tpu_torch.data.image_pipeline.ImageStore` at the
 checkpoint's size and normalised on the device
 (:func:`~fer_vit_tpu_torch.data.image_pipeline.normalize_images`); from 128
@@ -29,47 +30,19 @@ import torch
 
 from fer_vit_tpu_torch import EMOTION_NAMES
 from fer_vit_tpu_torch.core.dtypes import resolve_device
-from fer_vit_tpu_torch.models import ImageViT
-from fer_vit_tpu_torch.models.timm_vit import create_timm_vit
-
-SIZE_PRESETS = {
-    "tiny": dict(embed_dim=192, depth=12, heads=3, mlp_dim=768),
-    "small": dict(embed_dim=384, depth=12, heads=6, mlp_dim=1536),
-    "base": dict(embed_dim=768, depth=12, heads=12, mlp_dim=3072),
-}
-
-
-def model_from_config(model_config: dict,
-                      dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
-    model_config = dict(model_config)
-    model_config.setdefault("num_classes", 7)
-    if model_config.get("use_pretrained"):
-        model, _ = create_timm_vit(
-            model_config.get("model_size", "small"),
-            num_classes=model_config["num_classes"],
-            img_size=model_config.get("img_size", 224), dtype=dtype)
-        return model
-    preset = SIZE_PRESETS.get(model_config.get("model_size", "custom"), {})
-    return ImageViT(
-        img_size=model_config.get("img_size", 224),
-        patch_size=model_config.get("patch_size", 16),
-        embed_dim=preset.get("embed_dim", model_config.get("embed_dim", 384)),
-        depth=preset.get("depth", model_config.get("depth", 12)),
-        heads=preset.get("heads", model_config.get("heads", 6)),
-        mlp_dim=preset.get("mlp_dim", model_config.get("mlp_dim", 1536)),
-        num_classes=model_config["num_classes"],
-        dropout=model_config.get("dropout", 0.1),
-        dtype=dtype,
-    )
+from fer_vit_tpu_torch.eval.evaluate_model import (_plots, predict_arrays,
+                                                   results_summary,
+                                                   write_json)
+from fer_vit_tpu_torch.interop import checkpoints
+from fer_vit_tpu_torch.utils.metrics import (classification_report,
+                                             metrics_from_confusion)
 
 
 def load_model(checkpoint_path: str, dtype: Optional[torch.dtype] = None):
     """-> (model, config, img_size), through
-    :func:`fer_vit_tpu_torch.eval.evaluate_model.load_model` (the port's
+    :func:`fer_vit_tpu_torch.interop.checkpoints.load_model` (the port's
     own, the JAX trainers' and reference-format checkpoints)."""
-    from fer_vit_tpu_torch.eval.evaluate_model import load_model as load
-
-    model, config = load(checkpoint_path, dtype=dtype)
+    model, config = checkpoints.load_model(checkpoint_path, dtype=dtype)
     model_config = config.get("model", config)
     return model, config, model_config.get("img_size", 224)
 
@@ -94,10 +67,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(args) -> dict:
     from fer_vit_tpu_torch.data.image_pipeline import (ImageStore,
                                                        normalize_images)
-    from fer_vit_tpu_torch.eval.evaluate_model import (
-        _plots, predict_arrays, results_summary, write_json)
-    from fer_vit_tpu_torch.utils.metrics import (classification_report,
-                                                 metrics_from_confusion)
 
     dev = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)

@@ -3,8 +3,8 @@
 Port of ``fer_vit_tpu/eval/visualize_leam_weights.py`` (reference:
 eval/visualize_leam_weights.py): read ``leam.layer_weights``, sigmoid it,
 and draw the Coarse/Medium/Fine coloured bar chart. Reads the port's own
-checkpoints, the JAX trainers' msgpack files (``params/leam/layer_weights``)
-and reference-format torch files.
+checkpoints, the JAX trainers' msgpack files and reference-format torch
+files (:func:`fer_vit_tpu_torch.interop.checkpoints.read_checkpoint`).
 
 Usage::
 
@@ -18,6 +18,8 @@ from typing import Optional
 
 import numpy as np
 
+from fer_vit_tpu_torch.interop.checkpoints import read_checkpoint
+
 # Figure-contract constants (colours, 3.5/11.5 boundaries, labels, figsize,
 # dpi) of the reference figure: (colour, span in w+ layers, legend text).
 GROUPS = [
@@ -28,30 +30,12 @@ GROUPS = [
 NO_LEAM = "checkpoint has no LEAM module (train with --use_leam)"
 
 
-def _raw_leam_weights(checkpoint_path: str) -> np.ndarray:
-    from fer_vit_tpu_torch.eval.evaluate_model import _is_torch_checkpoint
-
-    if _is_torch_checkpoint(checkpoint_path):
-        from fer_vit_tpu_torch.interop import torch_state
-
-        payload = torch_state.torch_load(checkpoint_path)
-        sd = (payload["state"]["model"]
-              if torch_state.is_port_payload(payload)
-              else torch_state.reference_parts(payload)[2])
-        if "leam.layer_weights" not in sd:
-            raise KeyError(NO_LEAM)
-        return sd["leam.layer_weights"].detach().float().numpy()
-    from fer_vit_tpu_torch.interop.flax_msgpack import read_checkpoint
-
-    params = read_checkpoint(checkpoint_path)["state"]["params"]
-    if "leam" not in params:
-        raise KeyError(NO_LEAM)
-    return np.asarray(params["leam"]["layer_weights"])
-
-
 def extract_leam_weights(checkpoint_path: str) -> np.ndarray:
     """-> post-sigmoid (18,) weights from a LatentViTv2 checkpoint."""
-    raw_weights = _raw_leam_weights(checkpoint_path)
+    sd = read_checkpoint(checkpoint_path)["state_dict"]
+    if "leam.layer_weights" not in sd:
+        raise KeyError(NO_LEAM)
+    raw_weights = sd["leam.layer_weights"].detach().float().numpy()
     return 1.0 / (1.0 + np.exp(-raw_weights))
 
 

@@ -19,18 +19,15 @@ import argparse
 
 import torch
 
+from fer_vit_tpu_torch.interop import torch_state
+from fer_vit_tpu_torch.interop.checkpoints import load_model, read_checkpoint
+
 
 def export_checkpoint(checkpoint_path: str, output_path: str) -> dict:
     """The port's own or a JAX trainer's checkpoint -> a reference-format
     file at ``output_path``; returns the payload. A reference-format input
     is refused."""
-    from fer_vit_tpu_torch.eval.evaluate_model import (_is_torch_checkpoint,
-                                                       load_model)
-    from fer_vit_tpu_torch.interop import torch_state
-
-    if (_is_torch_checkpoint(checkpoint_path)
-            and not torch_state.is_port_payload(
-                torch_state.torch_load(checkpoint_path))):
+    if read_checkpoint(checkpoint_path)["format"] == "reference":
         raise SystemExit(
             f"{checkpoint_path} is already a torch-format checkpoint; "
             "export converts the port's own and the JAX trainers' "

@@ -531,8 +531,9 @@ def state_dict_from_jax(model_config: Mapping,
     """A checkpoint's model config and variables tree (``params``, and
     ``batch_stats`` for the BatchNorm models) -> the port's state dict for
     the model the config describes
-    (``fer_vit_tpu_torch/eval/evaluate_model.py::model_kind``)."""
-    from fer_vit_tpu_torch.eval.evaluate_model import model_kind
+    (:func:`fer_vit_tpu_torch.models.kinds.model_kind`)."""
+    # here, not at the top: the encoders import this module, not the models
+    from fer_vit_tpu_torch.models.kinds import model_kind
 
     return STATE_DICT_FROM_JAX[model_kind(model_config)](variables)
 

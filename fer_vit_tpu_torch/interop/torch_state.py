@@ -24,11 +24,15 @@ allowed. The AFS style extractor's pair
 (:func:`style_extractor_to_torch_state_dict`,
 :func:`style_extractor_from_torch_state_dict`) maps the port's stacked
 layout to the reference's per-block names and back.
+:func:`read_port_payload` parses the port's own trainers' files. The
+encoders and AFS import this module and need no classifier, so
+:mod:`fer_vit_tpu_torch.models.kinds` is imported inside the functions.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -72,6 +76,22 @@ def is_port_payload(payload: Any) -> bool:
             and isinstance(payload.get("config"), str))
 
 
+def read_port_payload(payload: dict) -> dict:
+    """A port payload (:func:`is_port_payload`) with its JSON fields parsed:
+    ``{epoch, metrics, config, run_id, scheduler_state, state}``;
+    ``scheduler_state`` is None when the file has none, and ``state`` holds
+    the model's and the optimizer's state dicts."""
+    return {
+        "epoch": payload["epoch"],
+        "metrics": json.loads(payload["metrics"]),
+        "config": json.loads(payload["config"]),
+        "run_id": payload["run_id"],
+        "scheduler_state": (json.loads(payload["scheduler_state"])
+                            if "scheduler_state" in payload else None),
+        "state": payload["state"],
+    }
+
+
 def reference_parts(ckpt: dict) -> Tuple[dict, dict, dict]:
     """``(config, model_config, state_dict)`` of a loaded reference-format
     checkpoint, with the reference's fallbacks: ``config`` before legacy
@@ -103,23 +123,20 @@ def read_torch_checkpoint(path: str):
     return (ckpt, *reference_parts(ckpt))
 
 
+# models/kinds.py's kinds as the JAX package names them
+_JAX_KIND = {"hybrid_latent_vit": "hybrid", "timm_vit": "image_vit"}
+
+
 def model_kind_from_config(model_config: Dict[str, Any]) -> str:
     """The JAX package's kind strings: ``image_vit``, ``hybrid``,
-    ``latent_cnn_<type>``, ``latent_vit_v2`` or ``latent_vit``, told apart
-    as ``fer_vit_tpu_torch.eval.evaluate_model.model_kind`` does (image
-    configs first: they carry ``model_size`` too)."""
-    from fer_vit_tpu_torch.eval.evaluate_model import is_image_config
+    ``latent_cnn_<type>``, ``latent_vit_v2`` or ``latent_vit``, read off
+    :func:`fer_vit_tpu_torch.models.kinds.model_kind`."""
+    from fer_vit_tpu_torch.models.kinds import model_kind
 
-    if is_image_config(model_config):
-        return "image_vit"
-    if "model_size" in model_config:
-        return "hybrid"
-    if "model_type" in model_config:
+    kind = model_kind(model_config)
+    if kind == "latent_cnn":
         return "latent_cnn_" + str(model_config["model_type"])
-    if any(model_config.get(k) for k in
-           ("use_lwn", "use_spe", "use_leam", "use_lwn_residual")):
-        return "latent_vit_v2"
-    return "latent_vit"
+    return _JAX_KIND.get(kind, kind)
 
 
 def reference_to_port(model: torch.nn.Module,
@@ -150,16 +167,14 @@ def reference_to_port(model: torch.nn.Module,
 def load_reference_model(path: str, dtype: Optional[torch.dtype] = None,
                          ckpt: Optional[dict] = None):
     """A reference-format file -> ``(model, config)``: the model its config
-    describes (:func:`fer_vit_tpu_torch.eval.evaluate_model.
-    model_from_config`) on the CPU, its weights loaded strictly; ``config``
-    is ``{}`` when the file has none. ``ckpt``: the file's payload, if
-    already loaded."""
-    from fer_vit_tpu_torch.eval.evaluate_model import (is_image_config,
-                                                       model_from_config)
+    describes (:func:`fer_vit_tpu_torch.models.kinds.model_from_config`)
+    on the CPU, its weights loaded strictly; ``config`` is ``{}`` when the
+    file has none. ``ckpt``: the file's payload, if already loaded."""
+    from fer_vit_tpu_torch.models.kinds import model_from_config, model_kind
 
     ckpt = torch_load(path) if ckpt is None else ckpt
     config, model_config, sd = reference_parts(ckpt)
-    if is_image_config(model_config) and model_config.get("use_pretrained"):
+    if model_kind(model_config) == "timm_vit":
         raise NotImplementedError(TIMM_PRETRAINED)
     model = model_from_config(model_config, dtype)
     model.load_state_dict(reference_to_port(model, sd), strict=True)

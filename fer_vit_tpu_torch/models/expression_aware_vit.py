@@ -9,7 +9,7 @@ seq_len to 2L.
 The model is a :class:`HybridLatentViT` whose directions are a
 non-persistent buffer, so its parameters and its state dict are exactly the
 ViT's, as the JAX package's params tree is: a checkpoint of it loads as a
-plain ``HybridLatentViT`` (``eval/evaluate_model.py::model_from_config``
+plain ``HybridLatentViT`` (``models/kinds.py::model_from_config``
 rebuilds one from ``model_size``), with the JAX loader's behaviour and
 nothing added to it.
 """

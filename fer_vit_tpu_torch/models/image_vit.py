@@ -113,25 +113,30 @@ class ImageViT(nn.Module):
         return linear(self.features(x), self.head).float()
 
 
+# the image trainer's ``--model_size`` presets (ViT/16 widths)
+PRESETS = {
+    "tiny": dict(embed_dim=192, depth=12, heads=3, mlp_dim=768),
+    "small": dict(embed_dim=384, depth=12, heads=6, mlp_dim=1536),
+    "base": dict(embed_dim=768, depth=12, heads=12, mlp_dim=3072),
+}
+
+
 def create_vit_tiny(num_classes: int = 7, img_size: int = 224,
                     **kw) -> ImageViT:
     """ViT-Tiny/16 (~5M parameters)."""
-    return ImageViT(img_size=img_size, patch_size=16, embed_dim=192,
-                    depth=12, heads=3, mlp_dim=768, num_classes=num_classes,
-                    **kw)
+    return ImageViT(img_size=img_size, patch_size=16,
+                    num_classes=num_classes, **PRESETS["tiny"], **kw)
 
 
 def create_vit_small(num_classes: int = 7, img_size: int = 224,
                      **kw) -> ImageViT:
     """ViT-Small/16 (~22M parameters)."""
-    return ImageViT(img_size=img_size, patch_size=16, embed_dim=384,
-                    depth=12, heads=6, mlp_dim=1536, num_classes=num_classes,
-                    **kw)
+    return ImageViT(img_size=img_size, patch_size=16,
+                    num_classes=num_classes, **PRESETS["small"], **kw)
 
 
 def create_vit_base(num_classes: int = 7, img_size: int = 224,
                     **kw) -> ImageViT:
     """ViT-Base/16 (~86M parameters)."""
-    return ImageViT(img_size=img_size, patch_size=16, embed_dim=768,
-                    depth=12, heads=12, mlp_dim=3072, num_classes=num_classes,
-                    **kw)
+    return ImageViT(img_size=img_size, patch_size=16,
+                    num_classes=num_classes, **PRESETS["base"], **kw)

@@ -212,7 +212,7 @@ class Predictor:
                         device: DeviceLike = None) -> "Predictor":
         """Load a trained checkpoint (the port's own, a JAX trainer's
         msgpack file or a reference-format torch file;
-        :func:`fer_vit_tpu_torch.eval.evaluate_model.load_model`) and route
+        :func:`fer_vit_tpu_torch.interop.checkpoints.load_model`) and route
         it: image configs take the image route,
         latent configs the pSp route, which needs ``psp`` or
         ``psp_weights`` (a converted pSp ``.npz`` in the JAX package's
@@ -220,8 +220,8 @@ class Predictor:
         of the classifier and the encoder (None: bf16 on CUDA, f32 on the
         CPU); ``device`` defaults to CUDA (with ``mesh``, the mesh's first
         data device)."""
-        from fer_vit_tpu_torch.eval.evaluate_model import (is_image_config,
-                                                           load_model)
+        from fer_vit_tpu_torch.interop.checkpoints import load_model
+        from fer_vit_tpu_torch.models.kinds import is_image_config
 
         device = (mesh.data_devices[0] if mesh is not None and device is None
                   else resolve_device(device))
@@ -237,8 +237,8 @@ class Predictor:
                 raise ValueError(
                     "this is a latent-space checkpoint; pass "
                     "psp_weights=<converted pSp .npz, or a pSp .pt> "
-                    "(convert the torch checkpoint via "
-                    "fer_vit_tpu/encoders/convert_psp.py)")
+                    "(convert the torch checkpoint via python -m "
+                    "fer_vit_tpu_torch.encoders.convert_psp)")
             from fer_vit_tpu_torch.data.generate_latents import load_encoder
 
             psp = load_encoder(psp_weights, device, dtype=dtype)
@@ -770,32 +770,6 @@ def make_server(predictor: Predictor, host: str = "127.0.0.1",
 # -- the predict CLI -----------------------------------------------------------
 
 
-def _collect_inputs(inputs: Sequence[str]) -> List[str]:
-    """Files and/or directories (recursive) -> ordered unique image paths."""
-    out: List[str] = []
-    seen = set()
-
-    def add(path: str) -> None:
-        if path not in seen:
-            seen.add(path)
-            out.append(path)
-
-    from fer_vit_tpu_torch.data.image_pipeline import IMAGE_EXTS
-
-    for item in inputs:
-        if os.path.isdir(item):
-            for root, dirs, files in os.walk(item):
-                dirs.sort()  # deterministic traversal across filesystems
-                for name in sorted(files):
-                    if name.lower().endswith(IMAGE_EXTS):
-                        add(os.path.join(root, name))
-        elif os.path.isfile(item):
-            add(item)
-        else:
-            raise FileNotFoundError(f"--input entry not found: {item}")
-    return out
-
-
 def build_predict_parser() -> argparse.ArgumentParser:
     """The JAX ``fervit-predict`` flags, unchanged."""
     p = argparse.ArgumentParser(
@@ -891,7 +865,9 @@ def predict_main(args, device: DeviceLike = None) -> dict:
         decode_ok = np.asarray(manifest["decode_ok"], bool)
         labels, probs = predictor.predict_packed(args.packed)
     else:
-        paths = _collect_inputs(args.input)
+        from fer_vit_tpu_torch.data.image_pipeline import collect_inputs
+
+        paths = collect_inputs(args.input)
         if not paths:
             raise SystemExit("no images found under --input")
         labels, probs, decode_ok = predictor.predict_files(

@@ -32,6 +32,8 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from fer_vit_tpu_torch.interop.torch_state import read_port_payload
+
 try:  # TensorBoard events where the writer imports; scalars.jsonl always
     from torch.utils.tensorboard import SummaryWriter
 
@@ -286,23 +288,13 @@ class ExperimentLogger:
         """Load a checkpoint. With ``state`` (a TrainState), its model and
         optimizer are restored in place and it is returned under 'state';
         else the raw state dicts are returned under 'state_dict'."""
-        payload = torch.load(path, map_location=map_location or "cpu",
-                             weights_only=True)
-        out = {
-            "epoch": payload["epoch"],
-            "metrics": json.loads(payload["metrics"]),
-            "config": json.loads(payload["config"]),
-            "run_id": payload["run_id"],
-            "scheduler_state": (
-                json.loads(payload["scheduler_state"])
-                if "scheduler_state" in payload else None
-            ),
-        }
+        out = read_port_payload(torch.load(
+            path, map_location=map_location or "cpu", weights_only=True))
         if state is not None:
-            state.load_state_dict(payload["state"])
+            state.load_state_dict(out["state"])
             out["state"] = state
         else:
-            out["state_dict"] = payload["state"]
+            out["state_dict"] = out.pop("state")
         return out
 
     # -- summary ------------------------------------------------------------

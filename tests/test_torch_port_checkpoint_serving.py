@@ -7,14 +7,13 @@ checkpoint and from the port's own checkpoint; the container discrimination;
 image packs byte-identical to the JAX package's on the PIL route and read
 across packages; and the predict CLI's report against the JAX CLI's on the
 same files, through ``--input`` and ``--packed``. Tiny sizes; JAX under
-``jax.default_matmul_precision("highest")``; the ImageViT presets (full
-width) in a subprocess."""
+``jax.default_matmul_precision("highest")``; the ImageViT presets' widths
+against the JAX package's ``model_from_config``, and the tiny preset's
+logits."""
 
 import argparse
 import json
 import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -42,12 +41,12 @@ from fer_vit_tpu_torch.data import image_packs
 from fer_vit_tpu_torch.data import native_decode
 from fer_vit_tpu_torch.encoders.psp import EncoderWrapper, PSpEncoder
 from fer_vit_tpu_torch.eval import evaluate_image_vit
-from fer_vit_tpu_torch.eval.evaluate_model import (_is_torch_checkpoint,
-                                                   load_model,
-                                                   model_from_config)
 from fer_vit_tpu_torch.interop import flax_msgpack
+from fer_vit_tpu_torch.interop.checkpoints import (is_torch_checkpoint,
+                                                   load_model)
 from fer_vit_tpu_torch.interop.from_jax import (psp_state_dict_from_jax,
                                                 state_dict_from_jax)
+from fer_vit_tpu_torch.models.kinds import model_from_config, model_kind
 from fer_vit_tpu_torch.serve import (Predictor, build_predict_parser,
                                      predict_main)
 from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
@@ -55,7 +54,6 @@ from fer_vit_tpu_torch.utils.experiment_logger import ExperimentLogger
 from tests.torch_port_common import (TINY_PSP, jax_psp_variables,
                                      random_variables)
 
-ROOT = Path(__file__).resolve().parent.parent
 # f32 on both sides in other operation orders: logits of a few layers agree
 # to a few ulps of their size; the image models' patch conv is one product
 # in the port (PERF.md: within 1e-4)
@@ -225,7 +223,7 @@ def test_load_model_gives_jax_logits(tmp_path, kind, container):
     write = (_write_jax_checkpoint if container == "jax_msgpack"
              else _write_port_checkpoint)
     path = write(tmp_path, config, params)
-    assert _is_torch_checkpoint(path) == (container == "port_torch")
+    assert is_torch_checkpoint(path) == (container == "port_torch")
     model, full, meta = load_model(path, with_meta=True)
     assert type(model).__name__ == {"latent": "LatentViT",
                                     "image": "ImageViT",
@@ -318,7 +316,7 @@ def test_reference_format_torch_checkpoints_raise(tmp_path, what):
     dict loaded by hand) and behind ``Predictor.from_checkpoint`` on the
     route their config names."""
     path, kind, cfg, sd = _reference_format(tmp_path, what)
-    assert _is_torch_checkpoint(path)
+    assert is_torch_checkpoint(path)
     model, config = load_model(path, dtype=torch.float32)
     assert config.get("model", config) == cfg
     want = model_from_config(cfg, torch.float32)
@@ -349,8 +347,6 @@ def test_model_kinds_not_ported_raise(config, kind):
     """The kinds that were refused before the model zoo was ported are
     built now; an unknown latent CNN type raises as in the JAX package,
     and a params tree without the kind's entries raises in the bridge."""
-    from fer_vit_tpu_torch.eval.evaluate_model import model_kind
-
     assert model_kind(config) == kind
     if kind == "latent_cnn":
         with pytest.raises(ValueError, match="Unknown model type"):
@@ -364,43 +360,41 @@ def test_model_kinds_not_ported_raise(config, kind):
         state_dict_from_jax(config, {"params": {}})
 
 
-def test_image_vit_presets_load_from_both_containers():
-    """tiny/small/base override the config's raw dims (full width, 32 px,
-    patch 8): a JAX msgpack checkpoint and the port's own give JAX's
-    logits. In a subprocess, so the full-width trees leave with it."""
-    code = (
-        "import sys, tempfile, json\n"
-        "import numpy as np\n"
-        "from tests import test_torch_port_checkpoint_serving as t\n"
-        "out = {}\n"
-        "for size in ('tiny', 'small', 'base'):\n"
-        "    cfg = dict(t.CONFIGS['image'], model_size=size)\n"
-        "    jm, params = t._jax_model(cfg, seed=6)\n"
-        "    x = t._sample(cfg, n=2)\n"
-        "    ref = t._jax_logits(jm, params, x)\n"
-        "    with tempfile.TemporaryDirectory() as d:\n"
-        "        for name, write, kw in (\n"
-        "                ('jax', t._write_jax_checkpoint,\n"
-        "                 {'optimizer': 'sgd'}),\n"
-        "                ('port', t._write_port_checkpoint, {})):\n"
-        "            path = write(d, cfg, params, **kw)\n"
-        "            model, _ = t.load_model(path)\n"
-        "            width = model.cls_token.shape[-1]\n"
-        "            got = model(t.torch.from_numpy(x)).detach().numpy()\n"
-        "            out[f'{size}/{name}'] = [int(width),\n"
-        "                float(np.abs(got - ref).max())]\n"
-        "print('RESULT', json.dumps(out))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    line = [l for l in res.stdout.splitlines() if l.startswith("RESULT")][0]
-    out = json.loads(line.split(" ", 1)[1])
-    widths = {"tiny": 192, "small": 384, "base": 768}
-    assert len(out) == 6
-    for key, (width, err) in out.items():
-        assert width == widths[key.split("/")[0]], key
-        assert err <= LOGIT_TOL["image"], (key, err)
+@pytest.mark.parametrize("size", ["tiny", "small", "base"])
+def test_image_vit_presets_match_jax(size):
+    """tiny/small/base override the config's raw dims (32 px, patch 8): the
+    port's model has the embed width, depth, heads and MLP width of the JAX
+    ``model_from_config`` for the same config, in every layer. No
+    forward."""
+    cfg = dict(CONFIGS["image"], model_size=size)
+    want = jax_eval.model_from_config(cfg)
+    model = model_from_config(cfg, torch.float32)
+    layers = model.transformer.layers
+    assert model.cls_token.shape[-1] == want.embed_dim
+    assert len(layers) == want.depth
+    assert {(layer.self_attn.embed_dim, layer.self_attn.num_heads,
+             layer.linear1.out_features) for layer in layers} == {
+        (want.embed_dim, want.heads, want.mlp_dim)}
+
+
+@pytest.mark.parametrize("container", ["jax", "port"])
+def test_image_vit_preset_loads_from_both_containers(tmp_path, container):
+    """The tiny preset (full width, 32 px, patch 8) through a JAX msgpack
+    checkpoint or the port's own gives JAX's logits. Its trees hold 5.5M
+    parameters, so the test needs no subprocess of its own."""
+    cfg = dict(CONFIGS["image"], model_size="tiny")
+    jax_model, params = _jax_model(cfg, seed=6)
+    x = _sample(cfg, n=2)
+    ref = _jax_logits(jax_model, params, x)
+    if container == "jax":
+        path = _write_jax_checkpoint(tmp_path, cfg, params, optimizer="sgd")
+    else:
+        path = _write_port_checkpoint(tmp_path, cfg, params)
+    model, _ = load_model(path)
+    assert model.cls_token.shape[-1] == 192
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=LOGIT_TOL["image"])
 
 
 # -- image packs ---------------------------------------------------------------

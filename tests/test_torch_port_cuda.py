@@ -400,7 +400,7 @@ def test_from_checkpoint_on_the_card(smoke, tmp_path, route):
     import numpy as np
 
     from fer_vit_tpu_torch.encoders.psp import EncoderWrapper
-    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
+    from fer_vit_tpu_torch.models.kinds import model_from_config
     from fer_vit_tpu_torch.ops import flash_attention
     from fer_vit_tpu_torch.serve import Predictor
 
@@ -558,7 +558,7 @@ def test_evaluate_image_vit_launches_k2(smoke, tmp_path):
 
     from fer_vit_tpu_torch import EMOTION_NAMES
     from fer_vit_tpu_torch.eval import evaluate_image_vit
-    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
+    from fer_vit_tpu_torch.models.kinds import model_from_config
     from fer_vit_tpu_torch.ops import flash_attention
 
     config = dict(model_size="custom", img_size=224, patch_size=16,

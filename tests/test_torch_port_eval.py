@@ -32,6 +32,7 @@ from fer_vit_tpu_torch.eval import (evaluate_image_vit, evaluate_model,
 from fer_vit_tpu_torch.interop.export_torch_checkpoint import (
     export_checkpoint)
 from fer_vit_tpu_torch.interop.from_jax import state_dict_from_jax
+from fer_vit_tpu_torch.models.kinds import model_from_config
 from fer_vit_tpu_torch.utils import experiment_logger
 from tests.torch_port_common import (TINY_IMAGE_VIT, TINY_VIT,
                                      jax_model_and_variables, tiny_trunk,
@@ -108,7 +109,7 @@ def test_evaluate_matches_jax(tmp_path, kind):
     with jax.default_matmul_precision("highest"):
         jp, jprobs, jcm = jax_eval.evaluate(jmodel, variables,
                                             JaxLatentStore.load(path), 8)
-    model = evaluate_model.model_from_config(cfg, torch.float32)
+    model = model_from_config(cfg, torch.float32)
     model.load_state_dict(state_dict_from_jax(cfg, variables), strict=True)
     preds, probs, cm = evaluate_model.evaluate(model, LatentStore.load(path),
                                                8, "cpu")
@@ -190,7 +191,7 @@ def test_cls_similarities_match_jax(tmp_path, tiny_trunk, capsys, kind):
     jmodel, variables = jax_model_and_variables(cfg, seed=3)
     x = np.random.default_rng(4).normal(size=(3, 18, D)).astype(np.float32)
     want, n_layers = _jax_cls_similarities(jmodel, variables, x)
-    model = evaluate_model.model_from_config(cfg, torch.float32)
+    model = model_from_config(cfg, torch.float32)
     model.load_state_dict(state_dict_from_jax(cfg, variables), strict=True)
     got = evaluate_model.cls_similarities(model, torch.from_numpy(x))
     if kind == "latent_cnn":
@@ -338,7 +339,7 @@ def test_model_architecture_total_matches_jax(tmp_path, kind):
     jl = jax_logger.ExperimentLogger("jax", base_dir=str(tmp_path))
     want = jl.log_model_architecture(jmodel, (18, D), variables=variables)
     jl.close()
-    model = evaluate_model.model_from_config(cfg, torch.float32)
+    model = model_from_config(cfg, torch.float32)
     pl = experiment_logger.ExperimentLogger("port", base_dir=str(tmp_path))
     got = pl.log_model_architecture(model, (18, D))
     pl.close()

@@ -371,7 +371,7 @@ def test_pretrained_npz_graft(tmp_path, capsys):
                 str(tmp_path / "exp")]), device="cpu")
     name, run = _run_dir(str(tmp_path / "exp"))
     assert name == "image_vit_d12_h6_do0.1_lr0.001_bs8_ep1_pretrained_frac100"
-    from fer_vit_tpu_torch.eval.evaluate_model import load_model
+    from fer_vit_tpu_torch.interop.checkpoints import load_model
 
     loaded, config = load_model(os.path.join(run, "checkpoints",
                                              "last_model.pt"))

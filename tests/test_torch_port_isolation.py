@@ -77,12 +77,15 @@ def test_every_module_imports_with_jax_blocked():
 
 
 def _imports(path: Path):
+    """Every module ``path`` imports, inside functions too: ``from a.b
+    import c`` gives ``a.b`` and ``a.b.c`` (c may be a module)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
 def test_sources_import_no_jax_and_no_jax_package():
@@ -93,6 +96,33 @@ def test_sources_import_no_jax_and_no_jax_package():
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax",
                                "fer_vit_tpu"), f"{f} imports {name}"
+
+
+EVAL, SERVE = "fer_vit_tpu_torch.eval", "fer_vit_tpu_torch.serve"
+# rule -> (which files of the package it holds, what they may not import):
+# checkpoints and models sit below eval and serving, and serving is a leaf
+# that only its exporter and the console entry points build on
+LAYERS = {
+    "interop_and_models_import_no_eval_or_serve": (
+        lambda rel: rel.startswith(("interop/", "models/")), (EVAL, SERVE)),
+    "only_serve_export_and_cli_import_serve": (
+        lambda rel: rel not in ("serve.py", "export.py", "cli.py"), (SERVE,)),
+    "serve_imports_nothing_of_eval": (
+        lambda rel: rel == "serve.py", (EVAL,)),
+}
+
+
+@pytest.mark.parametrize("rule", sorted(LAYERS))
+def test_package_layering(rule):
+    holds, banned = LAYERS[rule]
+    files = [f for f in sorted(PKG.rglob("*.py"))
+             if holds(f.relative_to(PKG).as_posix())]
+    assert files
+    found = sorted({f"{f.relative_to(PKG)} imports {name}"
+                    for f in files for name in _imports(f)
+                    if any(name == b or name.startswith(b + ".")
+                           for b in banned)})
+    assert not found, found
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():

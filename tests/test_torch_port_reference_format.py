@@ -20,8 +20,8 @@ from fer_vit_tpu.interop import model_kind_from_config as jax_kind
 from fer_vit_tpu.interop import to_torch_state_dict as jax_to_torch
 from fer_vit_tpu_torch.eval.evaluate_image_vit import (
     load_model as load_image_model)
-from fer_vit_tpu_torch.eval.evaluate_model import load_model
 from fer_vit_tpu_torch.interop import torch_state
+from fer_vit_tpu_torch.interop.checkpoints import load_model
 from fer_vit_tpu_torch.interop.export_torch_checkpoint import (
     build_parser as export_parser, export_checkpoint, main as export_main)
 from tests.torch_port_common import (jax_model_and_variables, tiny_trunk,

@@ -37,7 +37,8 @@ from fer_vit_tpu.train.harness import make_optimizer as jax_make_optimizer
 from fer_vit_tpu.utils.experiment_logger import (
     ExperimentLogger as JaxExperimentLogger)
 from fer_vit_tpu_torch.encoders.psp import EncoderWrapper, PSpEncoder
-from fer_vit_tpu_torch.eval.evaluate_model import load_model, model_from_config
+from fer_vit_tpu_torch.interop.checkpoints import load_model
+from fer_vit_tpu_torch.models.kinds import model_from_config
 from fer_vit_tpu_torch.interop.from_jax import (latent_cnn_state_dict_from_jax,
                                                 state_dict_from_jax)
 from fer_vit_tpu_torch.models import create_latent_cnn

@@ -152,8 +152,8 @@ def write_port_checkpoint(base_dir, model_config, variables, name="port"):
 
     import torch
 
-    from fer_vit_tpu_torch.eval.evaluate_model import model_from_config
     from fer_vit_tpu_torch.interop.from_jax import state_dict_from_jax
+    from fer_vit_tpu_torch.models.kinds import model_from_config
     from fer_vit_tpu_torch.train.harness import Harness, TrainConfig
     from fer_vit_tpu_torch.utils.experiment_logger import ExperimentLogger
 
