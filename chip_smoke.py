@@ -32,7 +32,12 @@ Phases, in order; any failure exits non-zero before the result line:
    backward kernels against their plain versions at batch 8 on every styled
    conv shape of the 1024 px AFS generator in f32 and bf16, and on the bf16
    operands of 1024 px x 32 and 512 px x 64 channels their device ms beside
-   the plain chain's and the bounds.
+   the plain chain's and the bounds. Then the up-conv blur's 4x4 FIR
+   (``upfirdn2d``, which replaces no TPU kernel either), forward and
+   backward, against the depthwise conv at batch 8 on every up-conv shape
+   of that generator in f32 and bf16, and at 1024 px x 32 and 512 px x 64
+   its device ms beside the depthwise conv's, cuDNN's grouped conv alone
+   and the bound.
 3. latent slice: ``EncoderWrapper`` (pSp over IR-SE50, 256 px, BN folded,
    fused residual units, bf16) feeds ``LatentViT`` (depth 6, 512 wide)
    behind ``Predictor``.
@@ -121,7 +126,8 @@ Phases, in order; any failure exits non-zero before the result line:
    pSp's FFHQ decoder (channel multiplier 2), seeded, written as a
    pSp-format ``.pt`` and turned into the JAX layout's ``.npz`` by the
    port's ``convert_stylegan2`` CLI (bit for bit); its forward at batch 8
-   in bf16 (ms, images/s, peak memory, 17 epilogue launches a forward)
+   in bf16 (ms, images/s, peak memory, 17 epilogue and 8 blur launches a
+   forward)
    and the card in f32 and bf16 against the CPU in f32 on 2 w+; IR-SE50
    ArcFace and LPIPS-alex at batch 8, card against CPU (no K1 or K2
    launched); ``train_style_extractor``
@@ -187,10 +193,11 @@ HTTP, bulk, exported, mesh and training paths, and phase 12's study
 variants and two-platform artifact halves), phase
 5's batches and images, the zoo runs' steps/s, phase 9's rates and
 seconds, phase 10's, 11's and 12's readings, and the phase seconds. The line
-before the last is a JSON object listing the five kernels
+before the last is a JSON object listing the six kernels
 (``fused_irse_unit_sm90``, ``fused_irse_unit``, ``flash_attention_sm90``,
-``flash_attention``, ``styled_epilogue``) with their launches summed over
-the main paths (the epilogue's, forward and backward, over phase 10), times,
+``flash_attention``, ``styled_epilogue``, ``upfirdn2d``) with their launches
+summed over the main paths (the epilogue's and the blur's, forward and
+backward, over phase 10), times,
 bound and error; the last line is ``{"ok": true, "device": {...}}``. The script
 needs a CUDA device and the repository around it; without either it exits
 non-zero and prints no result.
@@ -1111,6 +1118,131 @@ def phase_styled_epilogue(torch) -> dict:
                  f"{AFS_BATCH} bf16, {shapes} summed, mean of 2 turns"}}
 
 
+# -- phase 2: the up-conv blur's FIR ------------------------------------------
+
+# The blur's input side (2 * side + 1, the transposed conv's output) and
+# channels at each up-conv of the AFS generator at 1024 px, checked at the
+# trainer's batch; the two that hold most of its bytes are then timed. The
+# depthwise conv's f32 sums in another order: within 16 f32 ulps of each
+# value's L1 mass, and in bf16 one bf16 ulp more (tests/test_torch_port_cuda.py
+# says why).
+BLUR_SIDES = ((9, 512), (17, 512), (33, 512), (65, 512), (129, 256),
+              (257, 128), (513, 64), (1025, 32))
+BLUR_TIME_SIDES = ((1025, 32), (513, 64))
+BLUR_PAD = (1, 1)
+
+
+def blur_bound_ms(B, side, channels, itemsize=2):
+    """Least ms of one blur, forward or backward: the (side, side) input
+    read and the (side - 1, side - 1) output written once (or the other way
+    round), at the HBM rate."""
+    return 1e3 * B * channels * itemsize * (side ** 2 + (side - 1) ** 2) \
+        / PEAK_BYTES
+
+
+def check_blur(torch, sg, fir, x, g, k, t) -> float:
+    """Both launches on x and g against the depthwise conv and autograd's
+    gradient through it, and two launches bit-identical. Returns y's largest
+    error."""
+    B, side, _, ch = x.shape
+    dt = x.dtype
+    y = fir.blur_forward_kernel(x, t, BLUR_PAD)
+    gx = fir.blur_backward_kernel(g, t, BLUR_PAD, (side, side))
+    again = fir.blur_backward_kernel(g, t, BLUR_PAD, (side, side))
+    xr = x.clone().requires_grad_(True)
+    want_y = sg.upfirdn2d_conv(xr, k, pad=BLUR_PAD)
+    want_g, = torch.autograd.grad(want_y, xr, g)
+    torch.cuda.synchronize()
+    errs, ok = [], torch.equal(again, gx)
+    for got, want, src, f, pad in ((y, want_y.detach(), x, t[0], 1),
+                                   (gx, want_g, g, t[1], 2)):
+        err = (got.float() - want.float()).abs()
+        lim = 16 * torch.finfo(torch.float32).eps * fir.fir_plain(
+            src.float().abs(), f.abs(), pad, tuple(got.shape[1:3]))
+        if dt == torch.bfloat16:
+            lim = lim + torch.finfo(dt).eps * want.float().abs()
+        ok = ok and bool((err <= lim).all())
+        errs.append(float(err.max()))
+    log(f"check blur {str(dt)[6:]} batch {B} {side}x{side}x{ch}, plan "
+        f"{fir.plan(ch, dt)}: y max abs err {errs[0]:.3e}, grad_x "
+        f"{errs[1]:.3e}; deterministic {torch.equal(again, gx)}")
+    check(ok, f"blur: the kernel disagrees with the depthwise conv at "
+              f"{side}x{side}x{ch} {dt}")
+    return errs[0]
+
+
+def phase_blur(torch) -> dict:
+    """The up-conv blur's FIR (``ops/upfirdn2d.py``) against the depthwise
+    conv on the card at every up-conv's shape, f32 and bf16, batch 8
+    (:func:`check_blur`). Then device ms by CUDA events at batch 8, bf16:
+    the forward and backward launches, the plain path (``upfirdn2d_conv``:
+    pads, the grouped conv and cuDNN's layout transforms; autograd's
+    backward through it), cuDNN's grouped ``F.conv2d`` alone on a padded
+    NCHW-strided view (the library yardstick) and the bounds."""
+    import torch.nn.functional as F
+
+    from fer_vit_tpu_torch.encoders import stylegan2 as sg
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
+
+    k = sg.make_blur_kernel(gain=4.0).cuda()
+    t = fir.taps(k)
+    max_err, rows = 0.0, []
+    for dt in (torch.float32, torch.bfloat16):
+        for i, (side, ch) in enumerate(BLUR_SIDES):
+            kw = {"generator": torch.Generator("cuda").manual_seed(400 + i),
+                  "device": "cuda"}
+            x = torch.randn(AFS_BATCH, side, side, ch, **kw).to(dt)
+            g = torch.randn(AFS_BATCH, side - 1, side - 1, ch, **kw).to(dt)
+            err = check_blur(torch, sg, fir, x, g, k, t)
+            if dt == torch.float32:
+                continue
+            max_err = max(max_err, err)
+            if (side, ch) not in BLUR_TIME_SIDES:
+                continue
+            xr = x.clone().requires_grad_(True)
+            y_plain = sg.upfirdn2d_conv(xr, k, pad=BLUR_PAD)
+            xpad = F.pad(x, (0, 0, 1, 1, 1, 1)).permute(0, 3, 1, 2)
+            kern = torch.flip(k, (0, 1)).to(dt).view(1, 1, 4, 4).expand(
+                ch, 1, 4, 4)
+            fns = {
+                "fwd": lambda: fir.blur_forward_kernel(x, t, BLUR_PAD),
+                "bwd": lambda: fir.blur_backward_kernel(g, t, BLUR_PAD,
+                                                        (side, side)),
+                "plain_fwd": lambda: sg.upfirdn2d_conv(x, k, pad=BLUR_PAD),
+                "plain_bwd": lambda: torch.autograd.grad(
+                    y_plain, xr, g, retain_graph=True),
+                "library": lambda: F.conv2d(xpad, kern, groups=ch)}
+            turns = {n: [] for n in fns}
+            for n in ("fwd", "bwd", "plain_fwd", "plain_bwd", "library",
+                      "library", "plain_bwd", "plain_fwd", "bwd", "fwd"):
+                turns[n].append(time_ms(torch, fns[n], reps=20, warmup=3))
+            ms = {n: sum(v) / len(v) for n, v in turns.items()}
+            bound = blur_bound_ms(AFS_BATCH, side, ch)
+            rows.append({"shape": f"{side}x{side}x{ch}", **ms,
+                         "bound": bound})
+            log(f"time blur bf16 batch {AFS_BATCH} {side}x{side}x{ch}, "
+                f"device ms per call (CUDA events, mean of 2 turns): "
+                f"forward {ms['fwd']:.4f} (bound {bound:.4f}, "
+                f"{100 * bound / ms['fwd']:.1f} % of it), backward "
+                f"{ms['bwd']:.4f} ({100 * bound / ms['bwd']:.1f} %); plain "
+                f"path forward {ms['plain_fwd']:.4f}, autograd's backward "
+                f"{ms['plain_bwd']:.4f}; cuDNN's grouped conv2d alone "
+                f"{ms['library']:.4f}")
+            del xr, y_plain, xpad
+    total = {n: sum(r[n] for r in rows) for n in
+             ("fwd", "bwd", "plain_fwd", "plain_bwd", "library", "bound")}
+    shapes = ", ".join(r["shape"] for r in rows)
+    return {"upfirdn2d": {
+        "ms": total["fwd"] + total["bwd"],
+        "plain_ms": total["plain_fwd"] + total["plain_bwd"],
+        "bound_ms": 2 * total["bound"], "bound_by": "bytes",
+        "library_ms": total["library"], "max_abs_err": max_err,
+        "rows": rows,
+        "timed": f"device ms by CUDA events, forward plus backward at batch "
+                 f"{AFS_BATCH} bf16, {shapes} summed, mean of 2 turns; "
+                 f"library_ms: cuDNN's grouped conv2d, forward only"}}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1142,6 +1274,7 @@ def main() -> int:
     kernels = timed("2 K1", phase_kernels, torch)
     kernels.update(timed("2 K2", phase_attention, torch))
     kernels.update(timed("2 styled epilogue", phase_styled_epilogue, torch))
+    kernels.update(timed("2 blur", phase_blur, torch))
     # each kernel's launches on every main path, each read just after its
     # run with the counts set to 0 just before it
     paths = {"latent slice": timed("3 latent slice", phase_slice, torch,
@@ -1175,8 +1308,10 @@ def main() -> int:
                   **study["launches"]})
     launches = {name: sum(p[name] for p in paths.values())
                 for name in KERNEL_META}
-    # the epilogue runs on the AFS paths only, counted apart (phase 10)
+    # the epilogue and the blur run on the AFS paths only, counted apart
+    # (phase 10)
     launches["styled_epilogue"] = afs["epilogue_launches"]
+    launches["upfirdn2d"] = afs["blur_launches"]
     print(json.dumps({"launches_by_path": paths,
                       "production": {k: prod["production"][k]
                                      for k in ("batches", "images")},
@@ -1232,6 +1367,13 @@ FUSION_META = {
         "source": "fer_vit_tpu_torch/csrc/styled_epilogue.cu",
         "replaces": "no TPU kernel: XLA's fusion of StyledConv's epilogue "
                     "(fer_vit_tpu/encoders/stylegan2.py) in the JAX package",
+    },
+    "upfirdn2d": {
+        "route": "cuda",
+        "source": "fer_vit_tpu_torch/csrc/upfirdn2d.cu",
+        "replaces": "no TPU kernel: the JAX package's upfirdn2d is an XLA "
+                    "conv (fer_vit_tpu/encoders/stylegan2.py); the port's "
+                    "depthwise conv paid cuDNN's layout transforms",
     },
 }
 
@@ -3733,6 +3875,7 @@ AFS_EPOCHS = 2  # then --resume for a third
 AFS_VAL_N = 48  # train w+ written as the validation pack
 AFS_GEN_CHECK = 2  # w+ of phase 5 through the generator on the CPU in f32
 AFS_STYLED_CONVS = 17  # conv1 and two a block from 8 to 1024 px
+AFS_UP_CONVS = 8  # one a block from 8 to 1024 px, each with its blur
 AFS_LOCK_SIZE = 256
 AFS_LOCK_BATCH = 4
 AFS_LOCK_STEPS = 3
@@ -4036,12 +4179,14 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
         stylegan2_state_dict_from_jax)
 
     from fer_vit_tpu_torch.ops import styled_epilogue as se
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
 
     afs = root / "afs"
     afs.mkdir()
     zero = dict.fromkeys(KERNEL_META, 0)
     out = {"launches": {}}
     se.reset_launch_counts()
+    fir.reset_launch_counts()
 
     # 1. generator weights: a pSp-format .pt -> the converter CLI -> .npz
     t0 = time.perf_counter()
@@ -4070,6 +4215,7 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
     gen = afs_generator(torch, sg_sd, AFS_SIZE, "cuda")
     reset_kernel_counts()
     epi0 = se.styled_epilogue.kernel_launches[se.FORWARD]
+    blur0 = fir.upfirdn2d.kernel_launches[fir.FORWARD]
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
     with torch.no_grad():
@@ -4081,6 +4227,10 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
     check(epi == 5 * AFS_STYLED_CONVS,
           f"afs generator: {epi} epilogue launches in 5 forwards, expected "
           f"{AFS_STYLED_CONVS} a forward")
+    blur = fir.upfirdn2d.kernel_launches[fir.FORWARD] - blur0
+    check(blur == 5 * AFS_UP_CONVS,
+          f"afs generator: {blur} blur launches in 5 forwards, expected "
+          f"{AFS_UP_CONVS} a forward")
     peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
     check(img8.shape == (AFS_BATCH, AFS_SIZE, AFS_SIZE, 3)
           and img8.dtype == torch.bfloat16
@@ -4228,8 +4378,10 @@ def phase_afs(torch, dev_info, root: Path) -> dict:
           and worst["bf16_loss"] <= AFS_LOCK_BF16_RTOL,
           "afs lockstep: the card disagrees with the CPU")
     out["epilogue_launches"] = se.styled_epilogue.launches
+    out["blur_launches"] = fir.upfirdn2d.launches
     log(f"afs: epilogue launches over the phase "
-        f"{se.styled_epilogue.kernel_launches}")
+        f"{se.styled_epilogue.kernel_launches}, blur launches "
+        f"{fir.upfirdn2d.kernel_launches}")
     return out
 
 

@@ -9,7 +9,11 @@ trained with:
 * the modulated conv in the JAX package's form: modulate the input
   channels, run one conv with the shared weight, demodulate the output
   channels (no grouped conv with the batch folded into the groups);
-* the [1, 3, 3, 1] blur as a depthwise conv (:func:`upfirdn2d`);
+* the [1, 3, 3, 1] blur (:func:`upfirdn2d`): after each up-conv's
+  transposed conv, on CUDA, one hand-written NHWC 4x4 FIR, forward and
+  backward (:mod:`fer_vit_tpu_torch.ops.upfirdn2d`, its taps made once a
+  module); ToRGB's up-sampling skip blur, and every call on the CPU, as a
+  depthwise conv;
 * the fused leaky ReLU (bias, lrelu(0.2), times sqrt(2));
 * each styled conv's demodulation, noise, bias, leaky ReLU and gain as one
   epilogue (:mod:`fer_vit_tpu_torch.ops.styled_epilogue`: one kernel,
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fer_vit_tpu_torch.core.dtypes import cast_once, compute_dtype
+from fer_vit_tpu_torch.ops import upfirdn2d as fir
 from fer_vit_tpu_torch.ops.styled_epilogue import styled_epilogue
 from fer_vit_tpu_torch.utils.trace import span
 
@@ -59,9 +64,30 @@ def make_blur_kernel(k: Sequence[int] = BLUR_KERNEL,
 
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
-              down: int = 1, pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+              down: int = 1, pad: Tuple[int, int] = (0, 0),
+              taps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """NHWC up-sample (zero-stuff) -> pad (a negative pad crops) -> FIR
-    filter -> down-sample, in x's dtype."""
+    filter -> down-sample, in x's dtype.
+
+    A call off the CPU with ``up == down == 1`` (the up-conv blurs) takes
+    the hand-written 4x4 FIR (:func:`fer_vit_tpu_torch.ops.upfirdn2d.
+    upfirdn2d`), which raises for what it cannot take; ``taps`` are its
+    taps of ``kernel`` (:func:`fer_vit_tpu_torch.ops.upfirdn2d.taps`) where
+    the caller holds them, else they are made here. Every other call, and
+    every call on the CPU, is :func:`upfirdn2d_conv`."""
+    if x.device.type != "cpu" and up == 1 and down == 1:
+        return fir.upfirdn2d(x, fir.taps(kernel) if taps is None else taps,
+                             pad)
+    return upfirdn2d_conv(x, kernel, up, down, pad)
+
+
+def upfirdn2d_conv(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
+                   down: int = 1, pad: Tuple[int, int] = (0, 0)
+                   ) -> torch.Tensor:
+    """:func:`upfirdn2d` as a depthwise ``F.conv2d`` on a zero-stuffed,
+    padded copy of x, the kernel flipped, cast and expanded on every call:
+    the path of ToRGB's skip blur and of the CPU, and the plain version the
+    card's FIR is checked against."""
     b, h, w, c = x.shape
     if up > 1:
         x = F.pad(x.reshape(b, h, 1, w, 1, c),
@@ -112,12 +138,28 @@ class PixelNorm(nn.Module):
                                + 1e-8)
 
 
+class Blur(nn.Module):
+    """The x4 blur after an up-conv's transposed conv: :func:`upfirdn2d` of
+    NHWC x with the ``kernel`` buffer and ``pad``, the FIR kernel's taps
+    made once, not a call (``cast_once``)."""
+
+    def __init__(self, pad: Tuple[int, int]):
+        super().__init__()
+        self.register_buffer("kernel", make_blur_kernel(gain=4.0))
+        self.pad = pad
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        taps = cast_once(self, "taps", (self.kernel,),
+                         lambda: fir.taps(self.kernel))
+        return upfirdn2d(x, self.kernel, pad=self.pad, taps=taps)
+
+
 class ModulatedConv2d(nn.Module):
     """Per-sample modulated (and optionally demodulated) conv on NHWC x.
 
     ``weight`` is rosinality's (1, out, in, k, k). With ``upsample`` the
     conv is ``F.conv_transpose2d`` at stride 2, then the x4 blur with pad
-    (1, 1) (the ``blur.kernel`` buffer)."""
+    (1, 1) (:class:`Blur`, the ``blur.kernel`` buffer)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  style_dim: int = 512, demodulate: bool = True,
@@ -133,11 +175,8 @@ class ModulatedConv2d(nn.Module):
             1, out_channels, in_channels, kernel_size, kernel_size))
         self.modulation = EqualLinearSG(style_dim, in_channels, bias_init=1.0)
         if upsample:
-            self.blur = nn.Module()
-            self.blur.register_buffer("kernel",
-                                      make_blur_kernel(gain=4.0))
             p = len(BLUR_KERNEL) - 2 - (kernel_size - 1)
-            self.blur_pad = ((p + 1) // 2 + 1, p // 2 + 1)
+            self.blur = Blur(((p + 1) // 2 + 1, p // 2 + 1))
 
     def _weights(self, dt: torch.dtype):
         """The scaled weight (out, in, k, k) in ``dt`` and, for the
@@ -163,8 +202,7 @@ class ModulatedConv2d(nn.Module):
         x = (x * s[:, None, None, :]).permute(0, 3, 1, 2)
         if self.upsample:
             out = F.conv_transpose2d(x, w.transpose(0, 1), stride=2)
-            out = upfirdn2d(out.permute(0, 2, 3, 1), self.blur.kernel,
-                            pad=self.blur_pad)
+            out = self.blur(out.permute(0, 2, 3, 1))
         else:
             out = F.conv2d(x, w, padding=self.kernel_size // 2)
             out = out.permute(0, 2, 3, 1)

@@ -12,7 +12,10 @@ CPU, and the image evaluator's K2 launches; the AFS modules (the StyleGAN2
 generator, ArcFace, LPIPS, the style extractor and a training step)
 against the CPU, with none of the kernels launched; the StyleGAN2
 styled-conv epilogue's forward and backward kernels against their plain
-versions at the generator's shapes, and one launch a styled conv; both
+versions at the generator's shapes, and one launch a styled conv; the
+up-conv blur's FIR kernel, forward and backward, against the depthwise conv
+at the generator's shapes, in a 64 px generator against the CPU, and its
+launches at 1024 px; both
 kernels' custom
 ops through the dispatcher against their plain versions (with
 ``torch.library.opcheck`` on CUDA tensors), and exported bf16 programs'
@@ -897,6 +900,170 @@ def test_generator_launches_one_epilogue_a_styled_conv(smoke, monkeypatch):
                                                   se.BACKWARD: 9}
     assert bool(torch.isfinite(w.grad).all())
     assert set(_afs_counts().values()) == {0}
+
+
+# -- the up-conv blur's FIR kernel -------------------------------------------
+
+# (input side, channels, batch): the blur after each up-conv of the 1024 px
+# generator that differs in channels, and the first (8 px). The kernel
+# against the plain path (the depthwise conv, autograd for the gradient) on
+# the same card. Both sum 16 products in f32, in other orders: each sum is
+# within 8 f32 ulps of its L1 mass (sum of |x * tap|) of the exact one, so
+# the two within 16 (f32, TF32 off); bf16 rounds each sum once more, so one
+# bf16 ulp on top. Near a zero of y that f32 term is what remains: on an
+# H100 both paths read up to 15 bf16 ulps of such a y off the exact value.
+BLUR_CASES = [(1025, 32, 8), (513, 64, 8), (257, 128, 2), (129, 256, 2),
+              (65, 512, 2), (9, 512, 2)]
+BLUR_PAD = (1, 1)
+BLUR_F32_L1_ULPS = 16
+
+
+def _blur_operands(side, channels, batch, dtype, seed=0):
+    from fer_vit_tpu_torch.encoders import stylegan2 as sg
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
+
+    kw = {"generator": torch.Generator("cuda").manual_seed(seed),
+          "device": "cuda"}
+    x = torch.randn(batch, side, side, channels, **kw).to(dtype)
+    g = torch.randn(batch, side - 1, side - 1, channels, **kw).to(dtype)
+    k = sg.make_blur_kernel(gain=4.0).cuda()
+    return x, g, k, fir.taps(k)
+
+
+def _blur_agrees(got, want, x, f, pad, dtype):
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
+
+    got, want = got.float(), want.float()
+    l1 = fir.fir_plain(x.float().abs(), f.abs(), pad, tuple(got.shape[1:3]))
+    lim = BLUR_F32_L1_ULPS * torch.finfo(torch.float32).eps * l1
+    if dtype == torch.bfloat16:
+        lim = lim + torch.finfo(dtype).eps * want.abs()
+    return bool(((got - want).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("side,channels,batch", BLUR_CASES)
+def test_blur_kernels_match_the_plain_path(smoke, side, channels, batch,
+                                           dtype):
+    from fer_vit_tpu_torch.encoders import stylegan2 as sg
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
+
+    dt = getattr(torch, dtype)
+    x, g, k, t = _blur_operands(side, channels, batch, dt)
+    y = fir.blur_forward_kernel(x, t, BLUR_PAD)
+    gx = fir.blur_backward_kernel(g, t, BLUR_PAD, (side, side))
+    xr = x.clone().requires_grad_(True)
+    want_y = sg.upfirdn2d_conv(xr, k, pad=BLUR_PAD)
+    want_gx, = torch.autograd.grad(want_y, xr, g)
+    torch.cuda.synchronize()
+    assert y.dtype == gx.dtype == dt
+    assert y.shape == want_y.shape and gx.shape == x.shape
+    assert _blur_agrees(y, want_y.detach(), x, t[0], 1, dt)
+    assert _blur_agrees(gx, want_gx, g, t[1], 2, dt)
+
+
+def test_blur_autograd_op_is_deterministic_and_counted(smoke):
+    """Through ``upfirdn2d``: one forward and one backward launch, each the
+    kernel's bits, twice alike."""
+    from fer_vit_tpu_torch.encoders import stylegan2 as sg
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
+
+    x, g, k, t = _blur_operands(129, 256, 2, torch.bfloat16, seed=1)
+    runs = []
+    fir.reset_launch_counts()
+    for _ in range(2):
+        xr = x.clone().requires_grad_(True)
+        y = sg.upfirdn2d(xr, k, pad=BLUR_PAD, taps=t)
+        y.backward(g)
+        runs.append((y.detach(), xr.grad))
+    torch.cuda.synchronize()
+    assert fir.upfirdn2d.kernel_launches == {fir.FORWARD: 2,
+                                             fir.BACKWARD: 2}
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(runs[0][0], fir.blur_forward_kernel(x, t, BLUR_PAD))
+    assert torch.equal(runs[0][1], fir.blur_backward_kernel(
+        g, t, BLUR_PAD, (129, 129)))
+
+
+def test_blur_refuses_what_the_kernel_does_not_take(smoke):
+    """On CUDA, ``upfirdn2d`` with ``up == 1`` launches the kernel or
+    raises: a strided or misaligned x, channels off 16 bytes, f16 and a 3x3
+    FIR never reach the depthwise conv."""
+    from fer_vit_tpu_torch.encoders import stylegan2 as sg
+
+    x, _, k, t = _blur_operands(9, 512, 2, torch.bfloat16)
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+    misaligned = buf[1:].view(x.shape)
+    misaligned.copy_(x)
+    for bad, kern, match in ((misaligned, k, "16-byte-aligned"),
+                             (x.transpose(1, 2), k, "contiguous"),
+                             (x[..., :508].contiguous(), k, "multiple of"),
+                             (x.half(), k, "f32 or bf16"),
+                             (x, k[:3, :3], "4x4")):
+        with pytest.raises(ValueError, match=match):
+            sg.upfirdn2d(bad, kern, pad=BLUR_PAD)
+
+
+def test_generator_blurs_on_the_card(smoke):
+    """A 64 px generator (up-convs to 8, 16, 32 and 64 px) on 3 w+: the
+    image and the w+ gradient of its mean square, the card in f32 and bf16
+    against the CPU in f32, within the generator's card limits; 4 forward
+    launches a forward and 4 backward launches a gradient."""
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
+
+    w = torch.randn(3, 10, 512, generator=torch.Generator().manual_seed(5))
+
+    def run(device, dtype):
+        gen = _afs_generator(smoke, 64, device, dtype)
+        w_ = w.to(device).requires_grad_(True)
+        img = gen([w_])[0]
+        grad, = torch.autograd.grad(img.float().square().mean(), w_)
+        return img.detach(), grad
+
+    ref_img, ref_grad = run("cpu", torch.float32)
+    fir.reset_launch_counts()
+    for dt, tol in ((torch.float32, AFS_F32_RTOL), (None, AFS_BF16_RTOL)):
+        img, grad = run("cuda", dt)
+        torch.cuda.synchronize()
+        assert _rel(img, ref_img) <= tol, dt
+        assert _rel(grad, ref_grad) <= tol, dt
+    assert fir.upfirdn2d.kernel_launches == {fir.FORWARD: 8,
+                                             fir.BACKWARD: 8}
+
+
+def test_1024_generator_launches_eight_blurs_each_way(smoke, monkeypatch):
+    """At 1024 px (bf16, one w+): 8 forward launches a forward, one an
+    up-conv from 8 to 1024 px, each on an NHWC-contiguous transposed conv
+    output, and 8 backward launches for a gradient to w+."""
+    from fer_vit_tpu_torch.encoders import stylegan2 as sg
+    from fer_vit_tpu_torch.ops import upfirdn2d as fir
+
+    gen = sg.Generator(size=1024, generator=torch.Generator().manual_seed(0))
+    gen = gen.requires_grad_(False).cuda()
+    seen = []
+    inner = sg.Blur.forward
+
+    def forward(self, x):
+        seen.append((x.shape[1], x.shape[3], x.is_contiguous()))
+        return inner(self, x)
+
+    monkeypatch.setattr(sg.Blur, "forward", forward)
+    w = torch.randn(1, 18, 512, device="cuda")
+    fir.reset_launch_counts()
+    with torch.no_grad():
+        gen([w])
+    torch.cuda.synchronize()
+    assert fir.upfirdn2d.kernel_launches == {fir.FORWARD: 8,
+                                             fir.BACKWARD: 0}
+    assert seen == [(2 * s + 1, c, True) for s, c in (
+        (4, 512), (8, 512), (16, 512), (32, 512), (64, 256), (128, 128),
+        (256, 64), (512, 32))]
+    w.requires_grad_(True)
+    gen([w])[0].float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert fir.upfirdn2d.kernel_launches == {fir.FORWARD: 16,
+                                             fir.BACKWARD: 8}
+    assert bool(torch.isfinite(w.grad).all())
 
 
 # -- the kernels as custom ops, and exported programs on the card -------------
