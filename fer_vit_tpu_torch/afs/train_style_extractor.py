@@ -65,15 +65,13 @@ from fer_vit_tpu_torch.afs.pair_sampling import PairLatentStore, draw_pairs
 from fer_vit_tpu_torch.afs.style_extractor import StyleExtractor
 from fer_vit_tpu_torch.core.dtypes import DeviceLike, resolve_device
 from fer_vit_tpu_torch.encoders.arcface import convert_arcface_checkpoint
-from fer_vit_tpu_torch.encoders.convert_stylegan2 import (
-    psp_decoder_state_dict)
 from fer_vit_tpu_torch.encoders.irse import IR_SE_50_PLAN
 from fer_vit_tpu_torch.encoders.lpips import convert_lpips_state_dict
-from fer_vit_tpu_torch.encoders.stylegan2 import Generator, face_pool
+from fer_vit_tpu_torch.encoders.stylegan2 import (Generator, face_pool,
+                                                  generator_state_dict)
 from fer_vit_tpu_torch.interop.from_jax import (arcface_state_dict_from_jax,
                                                 load_npz_variables,
-                                                lpips_state_dict_from_jax,
-                                                stylegan2_state_dict_from_jax)
+                                                lpips_state_dict_from_jax)
 from fer_vit_tpu_torch.interop.torch_state import torch_load
 from fer_vit_tpu_torch.train.harness import clip_grad_global_norm_
 from fer_vit_tpu_torch.utils.trace import span
@@ -123,9 +121,7 @@ def _load_generator(path: str, size: int, device: torch.device) -> Generator:
         gen = Generator(size=size, generator=torch.Generator().manual_seed(0))
     else:
         gen = Generator(size=size)
-        gen.load_state_dict(
-            stylegan2_state_dict_from_jax(load_npz_variables(path))
-            if path.endswith(".npz") else psp_decoder_state_dict(path))
+        gen.load_state_dict(generator_state_dict(path))
     return gen.requires_grad_(False).eval().to(device)
 
 

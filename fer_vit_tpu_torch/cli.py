@@ -8,6 +8,8 @@ name::
 
     python -m fer_vit_tpu_torch.cli train_latent_vit --latent_train_dir ...
     python -m fer_vit_tpu_torch.cli serve --exported artifact/
+    python -m fer_vit_tpu_torch.cli reconstruct --psp_weights psp.pt \\
+        --input faces/ --output recon_pack/
 
 The modules stay runnable as ``python -m fer_vit_tpu_torch.<module>`` too.
 """
@@ -60,6 +62,13 @@ def predict(argv: Optional[Sequence[str]] = None) -> None:
     _serve.predict_main(_serve.build_predict_parser().parse_args(argv))
 
 
+def reconstruct(argv: Optional[Sequence[str]] = None) -> None:
+    from fer_vit_tpu_torch import serve as _serve
+
+    _serve.reconstruct_main(
+        _serve.build_reconstruct_parser().parse_args(argv))
+
+
 def serve(argv: Optional[Sequence[str]] = None) -> None:
     from fer_vit_tpu_torch import serve as _serve
 
@@ -83,6 +92,7 @@ COMMANDS: Dict[str, Callable[[Optional[Sequence[str]]], None]] = {
     "pack_images": pack_images,
     "export_aot": export_aot,
     "predict": predict,
+    "reconstruct": reconstruct,
     "serve": serve,
 }
 

@@ -39,6 +39,63 @@ SHARD_FMT = "images_pack_{:04d}.npy"
 DEFAULT_SHARD_SIZE = 4096
 
 
+class _PackWriter:
+    """Writes uint8 (n, S, S, 3) blocks as shards of ``shard_size`` images
+    and, on :meth:`finish`, the manifest."""
+
+    def __init__(self, out_dir: str, size: int, shard_size: int):
+        os.makedirs(out_dir, exist_ok=True)
+        self.out_dir, self.size, self.shard_size = out_dir, size, shard_size
+        self.shards: List[dict] = []
+        self.decode_ok: List[bool] = []
+        self._buf: List[np.ndarray] = []
+        self._buffered = 0
+
+    def _flush(self) -> None:
+        if not self._buffered:
+            return
+        arr = (np.concatenate(self._buf) if len(self._buf) > 1
+               else self._buf[0])
+        fname = SHARD_FMT.format(len(self.shards))
+        np.save(os.path.join(self.out_dir, fname), arr)
+        self.shards.append({"file": fname, "n": int(len(arr))})
+        self._buf, self._buffered = [], 0
+
+    def add(self, imgs: np.ndarray, ok: Sequence[bool]) -> None:
+        self.decode_ok.extend(bool(v) for v in ok)
+        self._buf.append(imgs)
+        self._buffered += len(imgs)
+        while self._buffered >= self.shard_size:
+            whole = (np.concatenate(self._buf) if len(self._buf) > 1
+                     else self._buf[0])
+            head, rest = whole[:self.shard_size], whole[self.shard_size:]
+            self._buf, self._buffered = [head], self.shard_size
+            self._flush()
+            if len(rest):
+                self._buf, self._buffered = [rest], len(rest)
+
+    def finish(self, paths: Sequence[str],
+               labels: Optional[Sequence[int]]) -> dict:
+        self._flush()
+        manifest = {
+            "size": int(self.size),
+            "num_images": len(paths),
+            "shards": self.shards,
+            "paths": list(paths),
+            "labels": (None if labels is None else [int(l) for l in labels]),
+            "decode_ok": self.decode_ok,
+        }
+        with open(os.path.join(self.out_dir, MANIFEST), "w") as f:
+            json.dump(manifest, f)
+        return manifest
+
+
+def _check_labels(paths, labels) -> None:
+    if labels is not None and len(labels) != len(paths):
+        raise ValueError(
+            f"labels ({len(labels)}) must match paths ({len(paths)})")
+
+
 def write_image_pack(paths: Sequence[str], out_dir: str, size: int = 256,
                      labels: Optional[Sequence[int]] = None,
                      shard_size: int = DEFAULT_SHARD_SIZE,
@@ -48,27 +105,9 @@ def write_image_pack(paths: Sequence[str], out_dir: str, size: int = 256,
     from fer_vit_tpu_torch.data import native_decode
     from fer_vit_tpu_torch.data.generate_latents import _load_image
 
-    if labels is not None and len(labels) != len(paths):
-        raise ValueError(
-            f"labels ({len(labels)}) must match paths ({len(paths)})")
-    os.makedirs(out_dir, exist_ok=True)
+    _check_labels(paths, labels)
+    writer = _PackWriter(out_dir, size, shard_size)
     use_native = native_decode.available()
-
-    shards: List[dict] = []
-    decode_ok: List[bool] = []
-    buf: List[np.ndarray] = []
-    buffered = 0
-
-    def flush() -> None:
-        nonlocal buf, buffered
-        if not buffered:
-            return
-        arr = np.concatenate(buf) if len(buf) > 1 else buf[0]
-        fname = SHARD_FMT.format(len(shards))
-        np.save(os.path.join(out_dir, fname), arr)
-        shards.append({"file": fname, "n": int(len(arr))})
-        buf, buffered = [], 0
-
     for i in range(0, len(paths), decode_batch_size):
         chunk = list(paths[i:i + decode_batch_size])
         if use_native:
@@ -76,30 +115,33 @@ def write_image_pack(paths: Sequence[str], out_dir: str, size: int = 256,
         else:
             imgs = np.stack([_load_image(p, size) for p in chunk]).astype(
                 np.uint8)
-        decode_ok.extend(bool(ok) for ok in
-                         imgs.reshape(len(chunk), -1).any(axis=1))
-        buf.append(imgs)
-        buffered += len(imgs)
-        while buffered >= shard_size:
-            whole = np.concatenate(buf) if len(buf) > 1 else buf[0]
-            head, rest = whole[:shard_size], whole[shard_size:]
-            buf, buffered = [head], shard_size
-            flush()
-            if len(rest):
-                buf, buffered = [rest], len(rest)
-    flush()
+        writer.add(imgs, imgs.reshape(len(chunk), -1).any(axis=1))
+    return writer.finish(paths, labels)
 
-    manifest = {
-        "size": int(size),
-        "num_images": len(paths),
-        "shards": shards,
-        "paths": list(paths),
-        "labels": (None if labels is None else [int(l) for l in labels]),
-        "decode_ok": decode_ok,
-    }
-    with open(os.path.join(out_dir, MANIFEST), "w") as f:
-        json.dump(manifest, f)
-    return manifest
+
+def write_array_pack(images: np.ndarray, out_dir: str, paths: Sequence[str],
+                     decode_ok: Optional[Sequence[bool]] = None,
+                     labels: Optional[Sequence[int]] = None,
+                     shard_size: int = DEFAULT_SHARD_SIZE) -> dict:
+    """Write (N, S, S, 3) uint8 ``images`` already in memory (the
+    reconstruction CLI's answers) as a pack under ``out_dir``, one
+    ``paths`` entry an image, with ``decode_ok`` (all true when None).
+    Returns the manifest."""
+    images = np.asarray(images)
+    if (images.ndim != 4 or images.shape[1] != images.shape[2]
+            or images.shape[3] != 3 or images.dtype != np.uint8):
+        raise ValueError(f"expected uint8 (N, S, S, 3) images, got "
+                         f"{images.dtype} {images.shape}")
+    if len(paths) != len(images):
+        raise ValueError(
+            f"paths ({len(paths)}) must match images ({len(images)})")
+    _check_labels(paths, labels)
+    writer = _PackWriter(out_dir, images.shape[1], shard_size)
+    for i in range(0, len(images), shard_size):
+        block = images[i:i + shard_size]
+        writer.add(block, [True] * len(block) if decode_ok is None
+                   else decode_ok[i:i + shard_size])
+    return writer.finish(paths, labels)
 
 
 def read_manifest(pack_dir: str) -> dict:

@@ -410,6 +410,47 @@ class Generator(nn.Module):
         return skip, (latent if return_latents else None)
 
 
+def generator_state_dict(path: str) -> dict:
+    """A generator's rosinality state dict from a JAX-layout ``.npz``
+    (``convert_stylegan2``'s output) or a pSp ``.pt`` (its ``decoder.*``
+    keys) or bare generator ``.pt``."""
+    from fer_vit_tpu_torch.encoders.convert_stylegan2 import (
+        psp_decoder_state_dict)
+    from fer_vit_tpu_torch.interop.from_jax import (
+        load_npz_variables, stylegan2_state_dict_from_jax)
+
+    if path.endswith(".npz"):
+        return stylegan2_state_dict_from_jax(load_npz_variables(path))
+    return psp_decoder_state_dict(path)
+
+
+def generator_shape(sd: dict) -> dict:
+    """``Generator``'s size, style_dim, n_mlp and channel_multiplier, read
+    from a rosinality state dict (the multiplier from the 64 px block's
+    channels, 2 where the generator stops short of 64 px)."""
+    n_rgb = sum(1 for k in sd if k.startswith("to_rgbs.")
+                and k.endswith(".conv.weight"))
+    size = 2 ** (n_rgb + 2)
+    rgb64 = sd.get("to_rgbs.3.conv.weight")  # 8 px is block 0
+    return {"size": size,
+            "style_dim": int(sd["conv1.conv.modulation.weight"].shape[1]),
+            "n_mlp": sum(1 for k in sd if k.startswith("style.")
+                         and k.endswith(".weight")),
+            "channel_multiplier": (2 if rgb64 is None
+                                   else int(rgb64.shape[2]) // 256)}
+
+
+def load_generator(path: str, dtype: Optional[torch.dtype] = None
+                   ) -> Generator:
+    """The generator of ``path`` (:func:`generator_state_dict`), its shape
+    read from its weights, loaded strictly, on the CPU, computing in
+    ``dtype`` (None: bf16 on CUDA, f32 on the CPU)."""
+    sd = generator_state_dict(path)
+    gen = Generator(**generator_shape(sd), dtype=dtype)
+    gen.load_state_dict(sd)
+    return gen
+
+
 def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:
     """NHWC adaptive average pool with torch's windows (start = floor(i *
     in / out), end = ceil((i + 1) * in / out), either direction), in f32,

@@ -136,6 +136,9 @@ def export_predictor(predictor, out_dir: str, *,
     """Writes ``predictor``'s programs, one per platform in ``platforms``
     (default: the predictor's device type) and dtype in ``input_dtypes``,
     and its weights to ``out_dir``; returns the meta dict written."""
+    if getattr(predictor, "route", None) == "reconstruct":
+        raise ValueError("the reconstruction route has no exported form: "
+                         "run it through Predictor.from_psp")
     if getattr(predictor, "mesh", None) is not None:
         raise ValueError(
             "cannot export a mesh-bound Predictor: an exported program is a "

@@ -1,14 +1,17 @@
 """Batch inference, the predict CLI and the HTTP server.
 
-Port of ``fer_vit_tpu/serve.py``. :class:`Predictor` runs one function
-``(B, S, S, 3) images -> (labels, probs)`` (:class:`PredictFn`) at one fixed
-batch size, on either route: the latent route (preprocess -> pSp encode ->
-classify, for classifiers over w+ codes) and the image route (ImageNet
-normalisation -> ImageViT or TimmViT); both end in an f32 softmax and
-argmax. Requests of any length are cut into chunks padded to
-``batch_size``, and up to ``pipeline_depth`` chunks are in flight: CUDA
-work is queued without waiting, and fetching an older chunk's results to
-the host is the only wait. The answers do not depend on the depth.
+Port of ``fer_vit_tpu/serve.py``. :class:`Predictor` runs one function of
+``(B, S, S, 3) images`` at one fixed batch size, on one of three routes:
+the latent route (preprocess -> pSp encode -> classify, for classifiers
+over w+ codes) and the image route (ImageNet normalisation -> ImageViT or
+TimmViT), both ``-> (labels, probs)`` (:class:`PredictFn`, an f32 softmax
+and argmax); and the reconstruction route, the whole pSp model (pSp encode
+-> StyleGAN2 decode -> face pool -> uint8), ``-> (B, 256, 256, 3)`` uint8
+images (:class:`ReconstructFn`). Requests of any length are cut into
+chunks padded to ``batch_size``, and up to ``pipeline_depth`` chunks are in
+flight: CUDA work is queued without waiting, and fetching an older chunk's
+answers to the host, straight into the call's answer arrays, is the only
+wait. The answers do not depend on the depth.
 
 * :meth:`Predictor.from_checkpoint` loads a trained checkpoint (the port's
   own, a JAX trainer's msgpack file or a reference-format torch file) and
@@ -27,11 +30,14 @@ the host is the only wait. The answers do not depend on the depth.
   batches, and :func:`make_server` serves them over HTTP (``GET /healthz``,
   ``POST /predict``, ``POST /predict_batch``).
 
-The CLIs, with the JAX CLIs' flags::
+The CLIs, with the JAX CLIs' flags, and the reconstruction CLI, which
+writes an image pack (:mod:`fer_vit_tpu_torch.data.image_packs`)::
 
     python -m fer_vit_tpu_torch.serve --checkpoint_path best_model.pt \\
         --psp_weights psp.npz --input faces/ --output preds.json
     python -m fer_vit_tpu_torch.serve serve --exported artifact/ --port 8000
+    python -m fer_vit_tpu_torch.cli reconstruct --psp_weights psp_ffhq.pt \\
+        --input faces/ --output recon_pack/
 """
 
 from __future__ import annotations
@@ -105,6 +111,12 @@ class PredictFn(nn.Module):
         probs = torch.softmax(logits.float(), dim=-1)
         return torch.argmax(logits, dim=-1), probs
 
+    def answers(self) -> tuple:
+        """Each answer's host dtype and trailing shape: labels and probs
+        (:func:`_class_answers`)."""
+        return _class_answers(getattr(self.model, "num_classes",
+                                      NUM_CLASSES))
+
     def _parts(self):
         return (("model",) if self.encoder is None
                 else ("encoder", "model"))
@@ -126,6 +138,67 @@ class PredictFn(nn.Module):
         return torch.func.functional_call(self, merged, (images,))
 
 
+def _class_answers(num_classes: int) -> tuple:
+    """The classification routes' answers on the host: labels (int32) and
+    probs (f32, ``num_classes`` wide)."""
+    return (np.int32, ()), (np.float32, (int(num_classes),))
+
+
+def to_uint8(images: torch.Tensor) -> torch.Tensor:
+    """pSp's ``tensor2im`` on [-1, 1] images: ``(x + 1) / 2`` clamped to
+    [0, 1], times 255, truncated to uint8, in x's dtype up to the cast."""
+    return ((images + 1) / 2).clamp_(0, 1).mul_(255).to(torch.uint8)
+
+
+class ReconstructFn(nn.Module):
+    """``images (B, S, S, 3) -> (B, out_size, out_size, 3) uint8``: the whole
+    pSp model, as pixel2style2pixel's ``pSp.forward`` with
+    ``resize_outputs`` and ``tensor2im`` compute it: ``preprocess_images``;
+    the encoder with its ``latent_avg`` (a :class:`PSpEncoder`); the
+    ``generator`` (a StyleGAN2 :class:`~fer_vit_tpu_torch.encoders.
+    stylegan2.Generator`) on those w+ codes with the stored noise; its
+    images average-pooled to ``out_size`` in f32 (``face_pool``); then
+    :func:`to_uint8`. Each forward adds its batch to ``decoded_images``
+    (:meth:`stats`), the faces the generator decoded, padding included."""
+
+    def __init__(self, encoder: nn.Module, generator: nn.Module,
+                 out_size: int = 256):
+        super().__init__()
+        if encoder.n_styles != generator.n_latent:
+            raise ValueError(
+                f"the encoder gives {encoder.n_styles} styles, the "
+                f"{generator.size} px generator takes {generator.n_latent}")
+        if encoder.style_dim != generator.style_dim:
+            raise ValueError(
+                f"the encoder's styles are {encoder.style_dim}-d, the "
+                f"generator's {generator.style_dim}-d")
+        self.encoder = encoder
+        self.generator = generator
+        self.out_size = int(out_size)
+        self.decoded_images = 0
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        from fer_vit_tpu_torch.encoders.psp import preprocess_images
+        from fer_vit_tpu_torch.encoders.stylegan2 import face_pool
+
+        with span("serve.preprocess"):
+            x = preprocess_images(images, size=self.encoder.input_size)
+        w = self.encoder(x)
+        with span("psp.decode"):
+            img, _ = self.generator([w], input_is_latent=True,
+                                    randomize_noise=False)
+        self.decoded_images += img.shape[0]
+        with span("serve.postprocess"):
+            return to_uint8(face_pool(img.float(), self.out_size))
+
+    def answers(self) -> tuple:
+        """The one answer's host dtype and trailing shape: uint8 faces."""
+        return ((np.uint8, (self.out_size, self.out_size, 3)),)
+
+    def stats(self) -> dict:
+        return {"decoded_images": self.decoded_images}
+
+
 def _replica(fn: PredictFn, device: torch.device) -> PredictFn:
     """A copy of ``fn`` on ``device``, without the cached casts
     (:func:`fer_vit_tpu_torch.core.dtypes.cast_once`) of the original."""
@@ -136,41 +209,55 @@ def _replica(fn: PredictFn, device: torch.device) -> PredictFn:
 
 
 class Predictor:
-    """End-to-end FER inference.
+    """End-to-end FER inference, or pSp reconstruction.
 
     ``model`` is a classifier with its weights loaded. Over w+ codes (e.g.
     :class:`fer_vit_tpu_torch.models.LatentViT`) it needs ``psp``, an
     :class:`fer_vit_tpu_torch.encoders.psp.EncoderWrapper` on the same
     ``device``. With ``image_route=True`` the model takes images (e.g.
     :class:`fer_vit_tpu_torch.models.ImageViT`), needs no encoder, and
-    ``input_size`` defaults to the model's ``img_size``. ``device`` defaults
-    to CUDA; ``device="cpu"`` for the CPU. With ``mesh`` the predictor runs
-    on the mesh's data devices (the first one holds ``model`` and ``psp``)
-    and ``batch_size`` must be a multiple of their number."""
+    ``input_size`` defaults to the model's ``img_size``. With ``decoder``
+    (a StyleGAN2 ``Generator`` whose ``n_latent`` is the encoder's styles)
+    and ``model=None`` it is the reconstruction route: ``psp`` then the
+    decoder, answering uint8 faces of ``output_size`` (:class:`ReconstructFn`;
+    :meth:`from_psp` loads both halves from one pSp checkpoint).
+    ``device`` defaults to CUDA; ``device="cpu"`` for the CPU. With
+    ``mesh`` the predictor runs on the mesh's data devices (the first one
+    holds ``model`` and ``psp``) and ``batch_size`` must be a multiple of
+    their number."""
 
-    def __init__(self, model: nn.Module, *, psp=None,
+    def __init__(self, model: Optional[nn.Module], *, psp=None,
                  batch_size: int = 64, image_route: bool = False,
                  input_size: Optional[int] = None, mesh=None,
-                 pipeline_depth: int = 2, device: DeviceLike = None):
+                 pipeline_depth: int = 2, device: DeviceLike = None,
+                 decoder: Optional[nn.Module] = None,
+                 output_size: int = 256):
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
-        self.image_route = bool(image_route)
+        if (decoder is None) == (model is None):
+            raise ValueError("pass a classifier as model, or model=None "
+                             "with a decoder (the reconstruction route)")
+        if decoder is not None and image_route:
+            raise ValueError("the reconstruction route starts from the pSp "
+                             "encoder, not the image route")
+        self.route = ("image" if image_route else
+                      "latent" if decoder is None else "reconstruct")
         if self.image_route:
             size = int(input_size or getattr(model, "img_size", 224))
         else:
             if psp is None:
-                raise ValueError("latent classifiers need a pSp encoder: "
-                                 "pass psp=EncoderWrapper(...)")
+                raise ValueError(f"the {self.route} route needs a pSp "
+                                 f"encoder: pass psp=EncoderWrapper(...)")
             size = psp.encoder.input_size
             if input_size is not None and int(input_size) != size:
                 # preprocess always resizes to the encoder's size; a
                 # different input_size would mean a silent double resample
                 raise ValueError(
-                    f"latent route: input_size ({input_size}) must equal "
-                    f"the pSp encoder's input size ({size})")
+                    f"{self.route} route: input_size ({input_size}) must "
+                    f"equal the pSp encoder's input size ({size})")
         self.batch_size = int(batch_size)
         self.mesh = mesh
         if mesh is None:
@@ -190,16 +277,29 @@ class Predictor:
         if psp is not None and not same_device(psp.device, self.device):
             raise ValueError(f"psp is on {psp.device}, the predictor on "
                              f"{self.device}")
-        self.model = model.to(self.device).eval().requires_grad_(False)
         self.psp = None if self.image_route else psp
-        self._model_name = type(model).__name__
         self._input_dtypes = None  # set by from_exported: pinned dtypes
         self.pipeline_depth = int(pipeline_depth)
-        self.num_classes = int(getattr(model, "num_classes", NUM_CLASSES))
         self.input_size = size
-        fn = PredictFn(self.model, None if self.psp is None
-                       else self.psp.encoder, size)
+        if decoder is None:
+            self.model = model.to(self.device).eval().requires_grad_(False)
+            self._model_name = type(model).__name__
+            self.num_classes = int(getattr(model, "num_classes",
+                                           NUM_CLASSES))
+            fn = PredictFn(self.model, None if self.psp is None
+                           else self.psp.encoder, size)
+        else:
+            self.model = None
+            self.decoder = decoder.to(self.device).eval().requires_grad_(
+                False)
+            self._model_name = (f"pSp ({type(decoder).__name__} "
+                                f"{decoder.size} px)")
+            self.num_classes = None
+            self.output_size = int(output_size)
+            fn = ReconstructFn(self.psp.encoder, self.decoder,
+                               self.output_size)
         self._fn = fn
+        self._answers = fn.answers()
         self._replicas = [(self.device, fn)] + [
             (d, _replica(fn, d)) for d in devices[1:]]
 
@@ -267,8 +367,9 @@ class Predictor:
         self._input_dtypes = tuple(calls_by_dtype)
         self.batch_size = int(meta["batch_size"])
         self.pipeline_depth = int(pipeline_depth)
-        self.image_route = meta["route"] == "image"
+        self.route = meta["route"]
         self.num_classes = int(meta["num_classes"])
+        self._answers = _class_answers(self.num_classes)
         self.input_size = int(meta["input_size"])
         self.device = resolve_device(device)
         self._calls = calls_by_dtype
@@ -278,23 +379,74 @@ class Predictor:
             images.dtype](weight_args, images))]
         return self
 
+    @classmethod
+    def from_psp(cls, psp_weights: str, *,
+                 decoder_weights: Optional[str] = None,
+                 batch_size: int = 64, mesh=None,
+                 dtype: Optional[torch.dtype] = None,
+                 pipeline_depth: int = 2, output_size: int = 256,
+                 device: DeviceLike = None) -> "Predictor":
+        """The reconstruction route from a pSp checkpoint: the encoder and
+        the decoder both from one ``.pt`` (its ``encoder.*``, ``latent_avg``
+        and ``decoder.*`` entries), or the encoder from a converted ``.npz``
+        and the decoder from ``decoder_weights``, a generator converted to
+        ``.npz`` (``python -m fer_vit_tpu_torch.encoders.convert_stylegan2``)
+        or a rosinality generator ``.pt``. The generator's size, mapping
+        depth, style width and channel multiplier are read from its
+        weights. ``dtype`` is the compute dtype of both halves (None: bf16
+        on CUDA, f32 on the CPU)."""
+        from fer_vit_tpu_torch.data.generate_latents import load_encoder
+        from fer_vit_tpu_torch.encoders.stylegan2 import load_generator
+
+        device = (mesh.data_devices[0] if mesh is not None and device is None
+                  else resolve_device(device))
+        if decoder_weights is None:
+            if psp_weights.endswith(".npz"):
+                raise ValueError(
+                    "a converted pSp .npz holds the encoder alone: pass "
+                    "decoder_weights=<converted generator .npz>, or the "
+                    "pSp .pt")
+            decoder_weights = psp_weights
+        psp = load_encoder(psp_weights, device, dtype=dtype)
+        decoder = load_generator(decoder_weights, dtype=dtype)
+        return cls(None, psp=psp, decoder=decoder, batch_size=batch_size,
+                   mesh=mesh, pipeline_depth=pipeline_depth,
+                   output_size=output_size, device=device)
+
+    @property
+    def image_route(self) -> bool:
+        return self.route == "image"
+
     def describe(self) -> dict:
         out = {
-            "route": "image" if self.image_route else "latent",
+            "route": self.route,
             "model": self._model_name,
             "batch_size": self.batch_size,
             "input_size": self.input_size,
-            "num_classes": self.num_classes,
             "device": str(self.device),
         }
+        if self.route == "reconstruct":
+            out["output_size"] = self.output_size
+        else:
+            out["num_classes"] = self.num_classes
         if self.mesh is not None:
             out["mesh"] = dict(self.mesh.shape)
         return out
 
-    def predict(self, images) -> Tuple[np.ndarray, np.ndarray]:
-        """(N, S, S, 3) images (uint8 0-255, or float 0-1 / 0-255) ->
-        (labels (N,) int32, probs (N, C) f32). N is arbitrary: chunks are
-        padded to ``batch_size``."""
+    def stats(self) -> dict:
+        """The reconstruction route's counters, summed over the replicas:
+        ``decoded_images`` (:class:`ReconstructFn`); {} on the others."""
+        out: dict = {}
+        for _, fn in self._replicas:
+            for k, v in getattr(fn, "stats", dict)().items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def predict(self, images):
+        """(N, S, S, 3) images (uint8 0-255, or float 0-1 / 0-255) -> the
+        route's answers: (labels (N,) int32, probs (N, C) f32), or on the
+        reconstruction route (N, out, out, 3) uint8 faces. N is arbitrary:
+        chunks are padded to ``batch_size``."""
         images = np.asarray(images)
         if images.ndim == 3:
             images = images[None]
@@ -312,22 +464,39 @@ class Predictor:
                     chunk = np.concatenate([chunk, pad])
                 yield chunk, k
 
-        return self._run_pipelined(chunks())
+        return self._answer(self._run_pipelined(chunks(), len(images)))
 
-    def _run_pipelined(self, batch_iter) -> Tuple[np.ndarray, np.ndarray]:
-        labels_out: List[np.ndarray] = []
-        probs_out: List[np.ndarray] = []
+    @staticmethod
+    def _answer(parts: tuple):
+        """The route's answer from :meth:`_run_pipelined`'s arrays: the one
+        array of a function with one answer, else the tuple."""
+        return parts[0] if len(parts) == 1 else parts
+
+    def _run_pipelined(self, batch_iter, total: int) -> tuple:
+        """Runs the padded ``(chunk, rows)`` batches of ``batch_iter``, whose
+        rows add up to ``total``, and returns one array per answer of the
+        route's function, of the dtype and trailing shape its ``answers()``
+        declares (labels int32 and probs f32, or uint8 faces), each filled
+        batch by batch, in the order of the batches."""
+        out = tuple(np.empty((total,) + shape, dt)
+                    for dt, shape in self._answers)
         inflight: deque = deque()
+        filled = 0
 
         def drain_one() -> None:
+            nonlocal filled
             k0, shards = inflight.popleft()
             with span("serve.drain"):
-                labels = np.concatenate([l.cpu().numpy()
-                                         for l, _, _ in shards])
-                probs = np.concatenate([p.cpu().numpy()
-                                        for _, p, _ in shards])
-                labels_out.append(labels[:k0].astype(np.int32))
-                probs_out.append(probs[:k0].astype(np.float32))
+                at = filled
+                for answers, _host in shards:
+                    take = min(len(answers[0]), filled + k0 - at)
+                    if take <= 0:
+                        break
+                    for dst, a in zip(out, answers):
+                        # one copy from the card, cast to dst's dtype
+                        torch.from_numpy(dst[at:at + take]).copy_(a[:take])
+                    at += take
+                filled += k0
 
         for imgs, k in batch_iter:
             inflight.append((k, self._launch(imgs)))
@@ -335,16 +504,16 @@ class Predictor:
                 drain_one()
         while inflight:
             drain_one()
-        if not labels_out:
-            return (np.zeros((0,), np.int32),
-                    np.zeros((0, self.num_classes), np.float32))
-        return np.concatenate(labels_out), np.concatenate(probs_out)
+        if filled != total:
+            raise RuntimeError(f"the batches held {filled} rows, "
+                               f"{total} were expected")
+        return out
 
     def _launch(self, chunk: np.ndarray) -> list:
         """Queues one padded chunk: one equal shard per replica, each
         launched on its device before any result is fetched. Returns
-        (labels, probs, pinned host buffer) per shard; the buffer stays
-        referenced until its copy is done."""
+        (the function's answers as a tuple, pinned host buffer) per shard;
+        the buffer stays referenced until its copy is done."""
         if (self._input_dtypes is not None
                 and chunk.dtype not in self._input_dtypes):
             # an artifact pins its input signatures; a silent cast could
@@ -360,8 +529,9 @@ class Predictor:
             with span("serve.put"):
                 host, x = _put(chunk[i * per:(i + 1) * per], dev)
             with span("serve.forward"), _on(dev), torch.inference_mode():
-                labels, probs = fn(x)
-            out.append((labels, probs, host))
+                answers = fn(x)
+            out.append((answers if isinstance(answers, tuple)
+                        else (answers,), host))
         return out
 
     def predict_files(self, paths: Sequence[str], prefetch: int = 2,
@@ -387,15 +557,14 @@ class Predictor:
                     ok_out.append(imgs[:k].reshape(k, -1).any(axis=1))
                 yield imgs, k
 
-        out = self._run_pipelined(batches())
+        out = self._run_pipelined(batches(), len(paths))
         if return_decode_ok:
             ok = (np.concatenate(ok_out) if ok_out
                   else np.zeros((0,), bool))
             return out + (ok,)
-        return out
+        return self._answer(out)
 
-    def predict_packed(self, pack_dir: str,
-                       prefetch: int = 2) -> Tuple[np.ndarray, np.ndarray]:
+    def predict_packed(self, pack_dir: str, prefetch: int = 2):
         """Predict from a pre-decoded uint8 image pack
         (:mod:`fer_vit_tpu_torch.data.image_packs`): batch assembly is a
         memory copy on a background thread."""
@@ -408,9 +577,9 @@ class Predictor:
                 f"pack decoded at {manifest['size']}px but this predictor "
                 f"expects {self.input_size}px: repack with "
                 f"--size {self.input_size}")
-        return self._run_pipelined(
+        return self._answer(self._run_pipelined(
             iter_packed_batches(pack_dir, self.batch_size,
-                                prefetch=prefetch))
+                                prefetch=prefetch), manifest["num_images"]))
 
     def warmup(self) -> None:
         """Build the kernels and warm the libraries before serving."""
@@ -474,6 +643,10 @@ class Batcher:
     def __init__(self, predictor: Predictor, max_batch: Optional[int] = None,
                  max_wait_ms: float = 5.0, max_queue: Optional[int] = None,
                  submit_timeout: float = 30.0):
+        if getattr(predictor, "route", None) == "reconstruct":
+            raise ValueError("the Batcher answers labels and probabilities; "
+                             "the reconstruction route runs through "
+                             "Predictor.predict and the reconstruct CLI")
         self.predictor = predictor
         self.max_batch = int(max_batch or predictor.batch_size)
         self.max_wait_s = float(max_wait_ms) / 1e3
@@ -907,6 +1080,73 @@ def predict_main(args, device: DeviceLike = None) -> dict:
     else:
         print(text)
     return report
+
+
+def build_reconstruct_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Reconstruct faces through the whole pSp model (encoder "
+                    "and StyleGAN2 decoder) into a uint8 image pack")
+    p.add_argument("--psp_weights", required=True,
+                   help="pSp .pt (the encoder, latent_avg and the decoder), "
+                        "or a converted pSp encoder .npz with "
+                        "--decoder_weights")
+    p.add_argument("--decoder_weights", default=None,
+                   help="converted generator .npz (python -m "
+                        "fer_vit_tpu_torch.encoders.convert_stylegan2) or a "
+                        "generator .pt; default: the --psp_weights .pt")
+    p.add_argument("--input", default=None, nargs="+",
+                   help="image files and/or directories (recursive)")
+    p.add_argument("--packed", default=None,
+                   help="pre-decoded uint8 image pack directory; mutually "
+                        "exclusive with --input")
+    p.add_argument("--output", required=True,
+                   help="image pack directory to write the reconstructions "
+                        "to (predict --packed reads it)")
+    p.add_argument("--output_size", type=int, default=256,
+                   help="side of the answers (pSp's face_pool: 256)")
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--pipeline_depth", type=int, default=2,
+                   help="batches kept in flight on the device")
+    _add_dp_flag(p)
+    return p
+
+
+def reconstruct_main(args, device: DeviceLike = None) -> dict:
+    """The reconstruct CLI: every image under ``--input`` (or in the
+    ``--packed`` pack) through :meth:`Predictor.from_psp`'s route, written
+    as an image pack to ``--output`` with the inputs' paths, labels (from a
+    pack) and ``decode_ok`` flags. Returns the pack's manifest. ``device``
+    defaults to CUDA."""
+    from fer_vit_tpu_torch.data.image_packs import (read_manifest,
+                                                    write_array_pack)
+
+    if (args.input is None) == (args.packed is None):
+        raise SystemExit("pass exactly one of --input or --packed")
+    mesh = _mesh_from_flag(args.dp_devices, device)
+    predictor = Predictor.from_psp(
+        args.psp_weights, decoder_weights=args.decoder_weights,
+        batch_size=args.batch_size, mesh=mesh,
+        pipeline_depth=args.pipeline_depth, output_size=args.output_size,
+        device=None if mesh is not None else device)
+    labels = None
+    if args.packed is not None:
+        manifest = read_manifest(args.packed)
+        paths, labels = manifest["paths"], manifest["labels"]
+        decode_ok = manifest["decode_ok"]
+        images = predictor.predict_packed(args.packed)
+    else:
+        from fer_vit_tpu_torch.data.image_pipeline import collect_inputs
+
+        paths = collect_inputs(args.input)
+        if not paths:
+            raise SystemExit("no images found under --input")
+        images, decode_ok = predictor.predict_files(paths,
+                                                    return_decode_ok=True)
+    manifest = write_array_pack(images, args.output, paths,
+                                decode_ok=decode_ok, labels=labels)
+    print(f"wrote {len(paths)} reconstructions "
+          f"({predictor.describe()['model']}) to {args.output}")
+    return manifest
 
 
 def build_serve_parser() -> argparse.ArgumentParser:

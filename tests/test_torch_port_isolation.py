@@ -348,7 +348,7 @@ def test_scaleout_modules_import_with_jax_blocked():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import fer_vit_tpu_torch.cli as cli\n"
-        "assert len(cli.COMMANDS) == 17\n"
+        "assert len(cli.COMMANDS) == 18\n"
         "print('IMPORTED')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -32,10 +32,12 @@ from tests.torch_port_common import TINY_IMAGE_VIT, TINY_PSP, TINY_VIT
 PKG = Path(__file__).resolve().parent.parent / "fer_vit_tpu_torch"
 # the names port_bench's hooks and readers match ranges by, as prefixes
 BENCH_PREFIXES = ("encoder", "body.", "attention.", "classifier", "launch",
-                  "predict", "bench.")
+                  "predict", "bench.", "decoder")
 SERVE_SPANS = ("serve.put", "serve.forward", "serve.preprocess",
                "serve.drain")
 PSP_SPANS = ("psp.trunk", "psp.fpn", "psp.heads")
+# the reconstruction route's own (serve.ReconstructFn)
+RECONSTRUCT_SPANS = ("psp.decode", "serve.postprocess")
 BATCHER_SPANS = ("serve.collect", "serve.stack", "serve.answer")
 AFS_SPANS = ("afs.extract", "afs.decode", "afs.provider", "afs.loss",
              "afs.backward", "afs.optimizer")
@@ -167,8 +169,8 @@ def test_batcher_spans_come_from_its_own_thread(predictors):
 def test_no_span_name_begins_with_a_benchmark_prefix():
     """Every span the package opens, found in its sources (the
     generator's by its ``BLOCK_SPANS``), is one of the serving path's, the
-    AFS step's or the generator's, and none begins with a name the
-    benchmark's readers and hooks match ranges by
+    reconstruction route's, the AFS step's or the generator's, and none
+    begins with a name the benchmark's readers and hooks match ranges by
     (``device_s_in("encoder")`` would count a span called
     ``encoder...``)."""
     from fer_vit_tpu_torch.encoders.stylegan2 import BLOCK_SPANS
@@ -177,7 +179,7 @@ def test_no_span_name_begins_with_a_benchmark_prefix():
     for path in PKG.rglob("*.py"):
         found |= set(re.findall(r'\bspan\(\s*"([^"]+)"', path.read_text()))
     assert found == set(SERVE_SPANS + PSP_SPANS + BATCHER_SPANS + AFS_SPANS
-                        + GENERATOR_SPANS)
+                        + GENERATOR_SPANS + RECONSTRUCT_SPANS)
     assert not [n for n in found if n.startswith(BENCH_PREFIXES)]
 
 
